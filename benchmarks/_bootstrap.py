@@ -2,7 +2,7 @@
 
 `python benchmarks/foo.py` puts `benchmarks/` (not the repo root) at
 `sys.path[0]`, and nothing pip-installs the package — so the
-`local_search_quantization_tpu` (and `bench`) imports die from any
+`local_search_quantization` (and `bench`) imports die from any
 fresh shell. Importing this module inserts the repo root ahead of the
 script directory; under `python -m benchmarks.foo` the repo root is
 already on the path and callers import this shim inside try/except.

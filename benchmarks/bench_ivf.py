@@ -6,9 +6,9 @@ paper-repro synthetic SIFT corpus (corpus v5; regenerate with
 utils.synth.synthetic_dataset(0, d=128, n_train=1e5, n_base=1e6,
 n_query=1e4) and np.savez to --corpus) with 64-bit PQ codes, against the
 exhaustive native scanner as both the qps baseline and the ADC recall
-ceiling. Everything is host/CPU — the
-point of this layer is serving without a TPU (the reference's linscan
-analog is also host C++, Linscan.jl:5 -> linscan_aqd.cpp).
+ceiling. Everything is host/CPU — the point of this layer is serving
+without an accelerator (the reference's linscan analog is also host C++,
+Linscan.jl:5 -> linscan_aqd.cpp).
 
 Stages cache to --cache so reruns skip train/encode/partition.
 
@@ -54,12 +54,12 @@ def main():
 
     jax.config.update("jax_platforms", "cpu")
 
-    from local_search_quantization_tpu import ivf
-    from local_search_quantization_tpu.models.pq import quantize_pq, train_pq
-    from local_search_quantization_tpu.ops import adc
-    from local_search_quantization_tpu.ops.subspaces import reconstruct_pq
-    from local_search_quantization_tpu.utils import native
-    from local_search_quantization_tpu.utils.config import PQConfig
+    from local_search_quantization import ivf
+    from local_search_quantization.models.pq import quantize_pq, train_pq
+    from local_search_quantization.ops import adc
+    from local_search_quantization.ops.subspaces import reconstruct_pq
+    from local_search_quantization.utils import native
+    from local_search_quantization.utils.config import PQConfig
 
     assert native.has_ivf(), "build the native library: make -C native"
     os.makedirs(args.cache, exist_ok=True)
@@ -72,10 +72,10 @@ def main():
     extra = None
     if args.method == "lsq":
         # 64-bit additive codes (m=7 + norm byte) from a repro stage cache
-        # — the ILS base encode is TPU work (ops/icm_pallas.py), so this
-        # mode reuses the repro pipeline's artifact instead of re-encoding.
-        from local_search_quantization_tpu.ops import costs, norms
-        from local_search_quantization_tpu.utils import checkpoint as ckpt
+        # — the ILS base encode is GPU work, so this mode reuses the repro
+        # pipeline's artifact instead of re-encoding.
+        from local_search_quantization.ops import costs, norms
+        from local_search_quantization.utils import checkpoint as ckpt
 
         assert args.stage_cache, "--method lsq needs --stage-cache"
         lsq = ckpt.load_model(os.path.join(args.stage_cache, "lsq.npz"))
@@ -169,7 +169,7 @@ def main():
 
     store = None
     if args.refine:
-        from local_search_quantization_tpu.refine import RefineStore, rerank
+        from local_search_quantization.refine import RefineStore, rerank
 
         store = RefineStore.build(xb, "sq8")
         kc = min(args.refine * k, n)
@@ -204,7 +204,7 @@ def main():
         print(json.dumps(row), flush=True)
 
         if args.refine:
-            from local_search_quantization_tpu.refine import rerank
+            from local_search_quantization.refine import rerank
 
             kc = args.refine * k
 

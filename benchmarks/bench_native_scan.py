@@ -21,7 +21,7 @@ per query and partial_sorts it (plus a 1e7-entry re-buffering loop,
 linscan_aqd.cpp:52-91); ours streams through a size-k max-heap with no
 O(n) scratch (native/lsq_native.cpp:41-76).
 
-Run from the repo root (CPU-only; does not touch the TPU):
+Run from the repo root (CPU-only; does not touch the GPU):
     python -m benchmarks.bench_native_scan [n] [nq] [k ...]
 """
 
@@ -61,7 +61,7 @@ def _build_ref(tmp="/tmp/ref_linscan"):
 
 
 def _load_ours():
-    from local_search_quantization_tpu.utils import native
+    from local_search_quantization.utils import native
     assert native.available(), "run `make -C native` first"
     return native
 

@@ -16,7 +16,7 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from local_search_quantization_tpu.ops import adc
+    from local_search_quantization.ops import adc
 
     n, d, m, h = 1_000_000, 128, 7, 256
     nq = 1024

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Multi-chip query QPS smoke on a virtual 8-device CPU mesh.
+"""Multi-device query QPS smoke on a virtual 8-device CPU mesh.
 
 Validates (and times) the sharded query path end-to-end: codes sharded on
 the data axis, replicated LUTs, per-shard scan+top-k, one all-gather +
@@ -33,8 +33,8 @@ import numpy as np
 
 
 def main():
-    from local_search_quantization_tpu.parallel.mesh import data_mesh
-    from local_search_quantization_tpu.parallel.query import (
+    from local_search_quantization.parallel.mesh import data_mesh
+    from local_search_quantization.parallel.query import (
         sharded_linscan_lsq,
         sharded_linscan_pq,
     )

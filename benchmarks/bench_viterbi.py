@@ -1,9 +1,9 @@
 #!/usr/bin/env python
 """Viterbi (ChainQ) exact-encode throughput on the current backend.
 
-Marginal-cost methodology (see bench.py): two sizes, min-of-trials, tiny
-forced fetch. Per vector the DP does (m-1) * 2h^2 VPU ops (min-plus over
-[h, h] transitions) — VPU-bound, no MXU path exists for min-plus.
+Marginal-cost methodology: two sizes, min-of-trials, tiny forced fetch.
+Per vector the DP does (m-1) * 2h^2 elementwise ops (min-plus over [h, h]
+transitions) — no matmul formulation exists for min-plus.
 
 Run from the repo root: python -m benchmarks.bench_viterbi [block]
 """
@@ -25,7 +25,7 @@ TRIALS = 3
 def main():
     import jax.numpy as jnp
 
-    from local_search_quantization_tpu.ops.viterbi import viterbi_encode
+    from local_search_quantization.ops.viterbi import viterbi_encode
 
     d, m, h = 128, 7, 256
     block = int(sys.argv[1]) if len(sys.argv) > 1 else 1024

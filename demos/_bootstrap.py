@@ -2,7 +2,7 @@
 
 `python scripts/foo.py` puts `scripts/` (not the repo root) at
 `sys.path[0]`, and nothing pip-installs the package — so the
-`local_search_quantization_tpu` import dies from any fresh shell.
+`local_search_quantization` import dies from any fresh shell.
 The reference's demos are runnable as plain scripts from anywhere
 (/root/reference/demos/demo_lsq.jl:2-7 composes via include()); this
 module is the Python equivalent: importing it inserts the repo root

@@ -17,10 +17,10 @@ import _bootstrap  # noqa: F401,E402  (repo-root sys.path shim; see _bootstrap.p
 
 import numpy as np
 
-from local_search_quantization_tpu.models import train_chainq, train_opq
-from local_search_quantization_tpu.ops import adc, costs, norms, viterbi
-from local_search_quantization_tpu.utils.config import ChainQConfig, OPQConfig
-from local_search_quantization_tpu.utils.eval import eval_recall
+from local_search_quantization.models import train_chainq, train_opq
+from local_search_quantization.ops import adc, costs, norms, viterbi
+from local_search_quantization.utils.config import ChainQConfig, OPQConfig
+from local_search_quantization.utils.eval import eval_recall
 
 from demo_pq import load_data
 
@@ -40,6 +40,10 @@ def main():
     args = ap.parse_args()
     if args.platform:
         jax.config.update("jax_platforms", args.platform)
+
+    from local_search_quantization.routes import enable_compile_cache
+
+    enable_compile_cache()
 
     m, h = args.m, args.h
     opq_cfg = OPQConfig(m=m, h=h, niter=args.niter)  # validate before load

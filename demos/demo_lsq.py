@@ -2,7 +2,7 @@
 """LSQ flagship demo: OPQ -> ChainQ -> LSQ init chain, ILS base encoding,
 norm quantization, additive-ADC query, recall@N.
 
-TPU-native equivalent of /root/reference/demos/demo_lsq.jl (and of
+JAX equivalent of /root/reference/demos/demo_lsq.jl (and of
 demo_lsq_gpu.jl — the batched ILS encoder *is* the accelerator path here).
 Falls back to a synthetic corpus when SIFT1M is not on disk.
 """
@@ -17,13 +17,13 @@ import _bootstrap  # noqa: F401,E402  (repo-root sys.path shim; see _bootstrap.p
 
 import numpy as np
 
-from local_search_quantization_tpu.models import train_chainq, train_lsq, train_opq
-from local_search_quantization_tpu.ops import adc, costs, icm, norms
-from local_search_quantization_tpu.utils.config import ChainQConfig, LSQConfig, OPQConfig
-from local_search_quantization_tpu.utils.eval import eval_recall
-from local_search_quantization_tpu.utils.checkpoint import load_model, save_model
-from local_search_quantization_tpu.utils.io import dataset_available, read_dataset
-from local_search_quantization_tpu.utils.synth import random_codes, synthetic_dataset
+from local_search_quantization.models import train_chainq, train_lsq, train_opq
+from local_search_quantization.ops import adc, costs, icm, norms
+from local_search_quantization.utils.config import ChainQConfig, LSQConfig, OPQConfig
+from local_search_quantization.utils.eval import eval_recall
+from local_search_quantization.utils.checkpoint import load_model, save_model
+from local_search_quantization.utils.io import dataset_available, read_dataset
+from local_search_quantization.utils.synth import random_codes, synthetic_dataset
 
 
 def load_data(args):
@@ -75,6 +75,10 @@ def main():
     if args.platform:
         import jax
         jax.config.update("jax_platforms", args.platform)
+
+    from local_search_quantization.routes import enable_compile_cache
+
+    enable_compile_cache()
 
     m, h = args.m, args.h
     lsq_cfg = LSQConfig(m=m, h=h, niter=args.niter, seed=args.seed,

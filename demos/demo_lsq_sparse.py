@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Sparse LSQ demo: PQ init -> L1-constrained codebook training (SLSQ1/SLSQ2).
 
-TPU-native equivalent of /root/reference/demos/demo_lsq_sparse.jl — the
+JAX equivalent of /root/reference/demos/demo_lsq_sparse.jl — the
 MATLAB/SPGL1 solver is replaced by an on-device FISTA + L1-ball projection.
 SLSQ1: S = d*h, tau = 0.7*||C_PQ||_1. SLSQ2: S = d*h + d^2, tau = 0.9*...
 (demo_lsq_sparse.jl:32-41).
@@ -16,9 +16,9 @@ import _bootstrap  # noqa: F401,E402  (repo-root sys.path shim; see _bootstrap.p
 
 import numpy as np
 
-from local_search_quantization_tpu.models import train_pq
-from local_search_quantization_tpu.models.slsq import train_lsq_sparse
-from local_search_quantization_tpu.utils.config import PQConfig, SLSQConfig
+from local_search_quantization.models import train_pq
+from local_search_quantization.models.slsq import train_lsq_sparse
+from local_search_quantization.utils.config import PQConfig, SLSQConfig
 
 from demo_pq import load_data
 
@@ -39,6 +39,10 @@ def main():
     if args.platform:
         import jax
         jax.config.update("jax_platforms", args.platform)
+
+    from local_search_quantization.routes import enable_compile_cache
+
+    enable_compile_cache()
 
     pq_cfg = PQConfig(m=args.m, h=args.h)  # validate args before the data load
     args.nbase, args.nquery = 1000, 100  # loader needs something

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """OPQ end-to-end demo: rotation + PQ train -> encode -> query -> recall@N.
 
-TPU-native equivalent of /root/reference/demos/demo_opq.jl.
+JAX equivalent of /root/reference/demos/demo_opq.jl.
 """
 
 from __future__ import annotations
@@ -13,11 +13,11 @@ import _bootstrap  # noqa: F401,E402  (repo-root sys.path shim; see _bootstrap.p
 
 import numpy as np
 
-from local_search_quantization_tpu.models import quantize_opq, train_opq
-from local_search_quantization_tpu.ops import adc
-from local_search_quantization_tpu.ops.subspaces import qerror_opq
-from local_search_quantization_tpu.utils.config import OPQConfig
-from local_search_quantization_tpu.utils.eval import eval_recall
+from local_search_quantization.models import quantize_opq, train_opq
+from local_search_quantization.ops import adc
+from local_search_quantization.ops.subspaces import qerror_opq
+from local_search_quantization.utils.config import OPQConfig
+from local_search_quantization.utils.eval import eval_recall
 
 from demo_pq import load_data  # shared dataset loader
 
@@ -38,6 +38,10 @@ def main():
     if args.platform:
         import jax
         jax.config.update("jax_platforms", args.platform)
+
+    from local_search_quantization.routes import enable_compile_cache
+
+    enable_compile_cache()
 
     cfg = OPQConfig(m=args.m, h=args.h, niter=args.niter, init="natural")
     x_train, x_base, x_query, gt = load_data(args)

@@ -1,8 +1,8 @@
 #!/usr/bin/env python
 """PQ end-to-end demo: train -> encode base -> query -> recall@N.
 
-TPU-native equivalent of /root/reference/demos/demo_pq.jl. Runs on SIFT1M if
-the TEXMEX files are under $LSQ_TPU_DATA (default ./data), otherwise on a
+JAX equivalent of /root/reference/demos/demo_pq.jl. Runs on SIFT1M if
+the TEXMEX files are under $LSQ_DATA (default ./data), otherwise on a
 synthetic Gaussian-mixture corpus so the pipeline is always runnable.
 
 Usage: python demos/demo_pq.py [--dataset SIFT1M|synthetic] [--ntrain 10000]
@@ -17,13 +17,13 @@ import _bootstrap  # noqa: F401,E402  (repo-root sys.path shim; see _bootstrap.p
 
 import numpy as np
 
-from local_search_quantization_tpu.models import quantize_pq, train_pq
-from local_search_quantization_tpu.ops import adc
-from local_search_quantization_tpu.utils.config import PQConfig
-from local_search_quantization_tpu.utils.eval import eval_recall
-from local_search_quantization_tpu.utils.io import dataset_available, read_dataset
-from local_search_quantization_tpu.utils.synth import synthetic_dataset
-from local_search_quantization_tpu.ops.subspaces import qerror_pq
+from local_search_quantization.models import quantize_pq, train_pq
+from local_search_quantization.ops import adc
+from local_search_quantization.utils.config import PQConfig
+from local_search_quantization.utils.eval import eval_recall
+from local_search_quantization.utils.io import dataset_available, read_dataset
+from local_search_quantization.utils.synth import synthetic_dataset
+from local_search_quantization.ops.subspaces import qerror_pq
 
 
 def load_data(args):
@@ -61,6 +61,10 @@ def main():
     if args.platform:
         import jax
         jax.config.update("jax_platforms", args.platform)
+
+    from local_search_quantization.routes import enable_compile_cache
+
+    enable_compile_cache()
 
     cfg = PQConfig(m=args.m, h=args.h)  # validate args before the data load
     x_train, x_base, x_query, gt = load_data(args)

@@ -1,13 +1,13 @@
-// Native host-side runtime for local_search_quantization_tpu.
+// Native host-side runtime for local_search_quantization.
 //
-// TPU-native framework keeps the *compute* path on the chip (XLA/Pallas);
+// The framework keeps the *compute* path on the accelerator (XLA);
 // this library is the host data plane, replacing the reference's native
 // layer (/root/reference/src/linscan/cpp/linscan_aqd.cpp,
 // linscan_aqd_pairwise_byte.cpp and the src/read/ Julia readers):
 //
 //  - lsq_linscan: OpenMP ADC lookup-table kNN scan over byte codes, for
-//    query serving from CPU hosts (and as a reference oracle for the TPU
-//    scanner). Unlike the reference it takes precomputed per-query LUTs so
+//    query serving from CPU hosts (and as a reference oracle for the
+//    device scanner). Unlike the reference it takes precomputed per-query LUTs so
 //    one entry point covers PQ/OPQ (distance LUTs) and additive codes
 //    (inner-product LUTs + norm term).
 //  - lsq_vecs_read: bulk TEXMEX fvecs/ivecs/bvecs reader with per-record
@@ -234,8 +234,7 @@ int lsq_linscan(float* dists, int64_t* ids, const uint8_t* codes,
 // pruned only when even its lower bound cannot beat the current k-th-best
 // threshold, and every surviving candidate is re-checked in exact f32
 // through the same heap_insert as the scalar path — identical accept
-// sequence, identical ties, identical output. (Same exact-filter shape as
-// the TPU select kernel's warm-start threshold, ops/select_pallas.py.)
+// sequence, identical ties, identical output.
 //
 // Returns 0 on success, 1 on bad args, 2 when compiled without AVX-512
 // VBMI or m > 32 (caller falls back to lsq_linscan).
@@ -286,8 +285,8 @@ int lsq_linscan_fast(float* dists, int64_t* ids, const uint8_t* codes,
   const double s = max_span > 0 ? 255.0 / max_span : 0.0;
 
   // Column-major code planes: the 64 consecutive rows of one codebook are
-  // one contiguous zmm load (the TPU path stores codes [m, n] for the same
-  // reason — see ops/adc.py).
+  // one contiguous zmm load (the device path stores codes [m, n] for the
+  // same reason — see ops/adc.py).
   const int64_t n64 = (n + 63) & ~int64_t{63};
   std::vector<uint8_t> codesT((size_t)m * n64, 0);
   for (int64_t i = 0; i < n; ++i)

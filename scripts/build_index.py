@@ -2,9 +2,9 @@
 """Build a serving index directory: train a quantizer, encode the base set,
 persist everything `scripts/serve.py` needs.
 
-Thin CLI over `local_search_quantization_tpu.index.Index.build` — the
-production split the reference lacks: build once (TPU-heavy), serve
-anywhere (TPU select kernel or the native CPU scanner).
+Thin CLI over `local_search_quantization.index.Index.build` — the
+production split the reference lacks: build once (GPU-heavy), serve
+anywhere (the GPU device scan or the native CPU scanner).
 
 Index directory layout (written by Index.save):
     meta.json   method / shapes / bit budget / build args
@@ -45,7 +45,7 @@ def main():
     ap.add_argument("--sr", default="none", choices=["none", "SR-D", "SR-C"],
                     help="LSQ stochastic relaxation (LSQ++, beyond the "
                          "reference); SR-C is the measured production-"
-                         "quality recommendation (BASELINE.md)")
+                         "quality recommendation")
     ap.add_argument("--sr-scale", type=float, default=1.0,
                     help="multiplier on the SR noise std")
     ap.add_argument("--seed", type=int, default=0)
@@ -63,11 +63,15 @@ def main():
 
         jax.config.update("jax_platforms", args.platform)
 
-    from local_search_quantization_tpu.index import Index
-    from local_search_quantization_tpu.utils.io import (
+    from local_search_quantization.routes import enable_compile_cache
+
+    enable_compile_cache()
+
+    from local_search_quantization.index import Index
+    from local_search_quantization.utils.io import (
         dataset_available, read_dataset,
     )
-    from local_search_quantization_tpu.utils.synth import synthetic_dataset
+    from local_search_quantization.utils.synth import synthetic_dataset
 
     if args.dataset != "synthetic" and dataset_available(args.dataset):
         x_train = read_dataset(args.dataset, args.ntrain).astype(np.float32)

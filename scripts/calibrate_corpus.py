@@ -22,20 +22,20 @@ import _bootstrap  # noqa: F401,E402  (repo-root sys.path shim; see _bootstrap.p
 
 import numpy as np  # noqa: E402
 
-from local_search_quantization_tpu.models.lsq import train_lsq  # noqa: E402
-from local_search_quantization_tpu.models.opq import (  # noqa: E402
+from local_search_quantization.models.lsq import train_lsq  # noqa: E402
+from local_search_quantization.models.opq import (  # noqa: E402
     quantize_opq, train_opq,
 )
-from local_search_quantization_tpu.models.pq import (  # noqa: E402
+from local_search_quantization.models.pq import (  # noqa: E402
     quantize_pq, train_pq,
 )
-from local_search_quantization_tpu.ops import icm, norms  # noqa: E402
-from local_search_quantization_tpu.ops.costs import reconstruct  # noqa: E402
-from local_search_quantization_tpu.ops.subspaces import reconstruct_pq  # noqa: E402
-from local_search_quantization_tpu.utils.config import (  # noqa: E402
+from local_search_quantization.ops import icm, norms  # noqa: E402
+from local_search_quantization.ops.costs import reconstruct  # noqa: E402
+from local_search_quantization.ops.subspaces import reconstruct_pq  # noqa: E402
+from local_search_quantization.utils.config import (  # noqa: E402
     LSQConfig, OPQConfig, PQConfig,
 )
-from local_search_quantization_tpu.utils.synth import (  # noqa: E402
+from local_search_quantization.utils.synth import (  # noqa: E402
     random_codes, synthetic_dataset,
 )
 

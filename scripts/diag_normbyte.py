@@ -23,8 +23,8 @@ def main():
 
     jax.config.update("jax_platforms", "cpu")
 
-    from local_search_quantization_tpu.ops import adc, norms
-    from local_search_quantization_tpu.utils import checkpoint as ckpt
+    from local_search_quantization.ops import adc, norms
+    from local_search_quantization.utils import checkpoint as ckpt
 
     def recall_at(gt, ids, ns=(1, 2, 5, 10, 100)):
         return {f"r@{n}": float((ids[:, :n] == gt[:, None]).any(1).mean())

@@ -50,12 +50,16 @@ def main():
 
         jax.config.update("jax_platforms", args.platform)
 
-    from local_search_quantization_tpu.index import Index
-    from local_search_quantization_tpu.utils.eval import eval_recall
-    from local_search_quantization_tpu.utils.io import (
+    from local_search_quantization.routes import enable_compile_cache
+
+    enable_compile_cache()
+
+    from local_search_quantization.index import Index
+    from local_search_quantization.utils.eval import eval_recall
+    from local_search_quantization.utils.io import (
         dataset_available, read_dataset,
     )
-    from local_search_quantization_tpu.utils.synth import synthetic_dataset
+    from local_search_quantization.utils.synth import synthetic_dataset
 
     idx = Index.load(args.index)
     dataset = args.dataset or idx.meta.get("dataset", "synthetic")

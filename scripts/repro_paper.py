@@ -15,7 +15,7 @@ equal bits, the papers' headline claim — still gets exercised end-to-end.
 Writes a JSON artifact with the full recall@N table per method and exits
 nonzero if the ordering assertion fails.
 
-Usage (paper scale, TPU, hours):
+Usage (paper scale, GPU, hours):
     python scripts/repro_paper.py --ntrain 100000 --niter 100
 Smoke scale (minutes):
     python scripts/repro_paper.py --ntrain 10000 --niter 10 --nbase 100000
@@ -86,8 +86,8 @@ def main():
                          "R=I, recording achieved l0/l1 next to recall")
     ap.add_argument("--stage-cache", default=None,
                     help="directory caching each trained model and the LSQ "
-                         "base codes, so an interrupted run (e.g. a TPU-"
-                         "backend outage mid-pipeline) resumes at the next "
+                         "base codes, so an interrupted run (e.g. a device "
+                         "failure mid-pipeline) resumes at the next "
                          "stage instead of from scratch; a manifest pins "
                          "the config and mismatches are refused")
     ap.add_argument("--out", default="recall_table.json")
@@ -102,32 +102,35 @@ def main():
                          "when the named dataset is absent")
     ap.add_argument("--platform", default=None)
     ap.add_argument("--scan-mode", default=None, choices=["matmul", "gather"],
-                    help="query-scan distance mode; default matmul (MXU). "
-                         "Use gather on CPU: the matmul scan is ~3.6e16 "
-                         "FLOP at paper scale, infeasible off-TPU, while "
-                         "the gather path is the exact C++-scanner "
-                         "transcription (~8e10 lookups)")
+                    help="query-scan distance mode; default gather (the "
+                         "exact C++-scanner transcription, ~8e10 lookups "
+                         "at paper scale); matmul is the one-hot "
+                         "contraction, ~3.6e16 FLOP at paper scale")
     args = ap.parse_args()
     if args.platform:
         import jax
 
         jax.config.update("jax_platforms", args.platform)
 
+    from local_search_quantization.routes import enable_compile_cache
+
+    enable_compile_cache()
+
     import jax
 
-    from local_search_quantization_tpu.models import (
+    from local_search_quantization.models import (
         train_chainq, train_lsq, train_opq, train_pq,
     )
-    from local_search_quantization_tpu.models.opq import quantize_opq
-    from local_search_quantization_tpu.models.pq import quantize_pq
-    from local_search_quantization_tpu.ops import adc, icm, norms
-    from local_search_quantization_tpu.utils.config import (
+    from local_search_quantization.models.opq import quantize_opq
+    from local_search_quantization.models.pq import quantize_pq
+    from local_search_quantization.ops import adc, icm, norms
+    from local_search_quantization.utils.config import (
         ChainQConfig, LSQConfig, OPQConfig, PQConfig,
     )
-    from local_search_quantization_tpu.utils.io import (
+    from local_search_quantization.utils.io import (
         dataset_available, read_dataset,
     )
-    from local_search_quantization_tpu.utils.synth import (
+    from local_search_quantization.utils.synth import (
         random_codes, synthetic_dataset,
     )
 
@@ -195,14 +198,14 @@ def main():
         "d": int(x_train.shape[1]),
         "bits": args.bits, "methods": {},
         # Provenance stamps: which backend produced the wall_s columns
-        # (CPU walls are not comparable to TPU walls), and — for synthetic
+        # (CPU walls are not comparable to GPU walls), and — for synthetic
         # runs — which corpus generator produced the data
         # (tests/test_synth_corpus.py checks committed artifacts against
         # the CURRENT generator's fingerprint to catch silent drift).
         "platform": jax.default_backend(),
     }
     if synthetic:
-        from local_search_quantization_tpu.utils.synth import (
+        from local_search_quantization.utils.synth import (
             corpus_fingerprint,
         )
 
@@ -217,7 +220,7 @@ def main():
     # --- Stage cache: resume an interrupted pipeline at stage granularity.
     import os
 
-    from local_search_quantization_tpu.utils import checkpoint as ckpt
+    from local_search_quantization.utils import checkpoint as ckpt
 
     cache = args.stage_cache
     # SR only affects the LSQ stage, so its knobs live in the LSQ stage
@@ -319,7 +322,7 @@ def main():
         # ChainQ as its own 64-bit method (beyond the reference, which only
         # uses it as LSQ's initializer): Viterbi-exact base encode in the
         # rotated space + norm byte, queried through the additive scanner.
-        from local_search_quantization_tpu.ops import viterbi
+        from local_search_quantization.ops import viterbi
 
         t_cq = time.time()
         RXb = np.asarray(x_base, np.float32) @ np.asarray(chain.R)
@@ -385,10 +388,10 @@ def main():
     # same additive scanner — pins the extra trainer's quality next to
     # PQ/OPQ/LSQ instead of only a golden gate (VERDICT r3 item 7).
     if args.with_rvq:
-        from local_search_quantization_tpu.models import (
+        from local_search_quantization.models import (
             quantize_rvq, train_rvq,
         )
-        from local_search_quantization_tpu.utils.config import RVQConfig
+        from local_search_quantization.utils.config import RVQConfig
 
         t = time.time()
         rvq = _cached_model("rvq", lambda: train_rvq(
@@ -427,8 +430,8 @@ def main():
     # dense LSQ at the same 64-bit budget (it is NOT in the ordering
     # assertion: sparsity deliberately trades recall for model size).
     if args.with_slsq:
-        from local_search_quantization_tpu.models.slsq import train_lsq_sparse
-        from local_search_quantization_tpu.utils.config import SLSQConfig
+        from local_search_quantization.models.slsq import train_lsq_sparse
+        from local_search_quantization.utils.config import SLSQConfig
 
         d = x_train.shape[1]
         pq7 = _cached_model("pq7", lambda: train_pq(

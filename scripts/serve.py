@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Serve k-NN queries over an index built by scripts/build_index.py.
 
-Thin CLI over `local_search_quantization_tpu.index.Index` speaking a
+Thin CLI over `local_search_quantization.index.Index` speaking a
 JSON-lines protocol on stdin/stdout. First output line announces
 readiness (after the warm-up batch has compiled the query program):
 
@@ -30,19 +30,18 @@ then one response per request line:
               flags compose freely with JSON on the other side and with
               every query option; "add" also accepts "binary_vectors".
               Rationale: JSON float parse/serialize dominates the
-              protocol overhead (BASELINE.md serving section); the
-              binary frame removes both sides' float text entirely.
+              protocol overhead; the binary frame removes both sides'
+              float text entirely.
               (nprobe only with an IVF partition in the index — scan the
               nprobe nearest coarse lists instead of everything; omit or
               0 for the exhaustive scan; --nprobe sets the default.
               "refine": r reranks the top r*k ADC candidates by exact
               distance to the stored original vectors — needs a refine
               store in the index; distances become true squared L2.
-              "precision": "bf16" is the hi-only serving fast mode —
-              LUTs rounded once, half the scan MXU work, exact
-              lexicographic top-k of the rounded metric; exhaustive
-              scans only, composes with refine; --precision sets the
-              default)
+              "precision": "bf16" is the rounded serving mode — LUTs
+              rounded to bf16 once, exact lexicographic top-k of the
+              rounded metric; exhaustive scans only, composes with
+              refine; --precision sets the default)
     insert:   {"op": "add", "id": 8, "vectors": [[...], ...]}
            -> {"id": 8, "added": [n0, n0+1, ...], "n": new_total}
               (encodes with the FROZEN trained model — PQ/OPQ subspace
@@ -60,9 +59,9 @@ then one response per request line:
               (writes the mutated codes back to the index directory)
     errors:   {"id": 7, "error": "..."}
 
-Backend routing lives in ops/adc.py: on TPU the fused Pallas scan+select
-kernel, on CPU hosts the native AVX-512 scanner (when built) or the pure
-NumPy/JAX path. The reference's serving story is the bare C++ linscan
+Backend routing lives in ops/adc.py (routes.py decides): on a GPU the
+device scan over codes cached on the card, on CPU hosts the native
+AVX-512 scanner (when built) or the XLA scan. The reference's serving story is the bare C++ linscan
 functions (src/linscan/Linscan.jl:5-73); this wraps the same operation as
 a long-lived process so compiles/LUT setup are paid once, and adds
 dynamic inserts/deletes, which the reference has no analog of at all.
@@ -99,8 +98,8 @@ def main():
                     help="default exact-rerank factor; 0 = off (request may "
                          "override; needs --refine at build)")
     ap.add_argument("--precision", default="f32", choices=("f32", "bf16"),
-                    help="default scan precision; bf16 = hi-only serving "
-                         "fast mode (request may override; exhaustive "
+                    help="default scan precision; bf16 = rounded-LUT "
+                         "serving mode (request may override; exhaustive "
                          "scans only — rejected with nprobe)")
     ap.add_argument("--platform", default=None)
     ap.add_argument("--mesh", type=int, default=0,
@@ -113,12 +112,15 @@ def main():
     ap.add_argument("--no-warmup", action="store_true",
                     help="skip the compile-triggering dummy batch")
     args = ap.parse_args()
-    if args.platform:
-        import jax
+    import jax
 
+    if args.platform:
         jax.config.update("jax_platforms", args.platform)
 
-    from local_search_quantization_tpu.index import Index
+    from local_search_quantization.index import Index
+    from local_search_quantization.routes import enable_compile_cache
+
+    enable_compile_cache()
 
     mesh = None
     if args.mesh < 0:
@@ -131,9 +133,7 @@ def main():
             raise SystemExit("--mesh and a nonzero --nprobe default are "
                              "incompatible (per-request nprobe still "
                              "answers as an error in mesh mode)")
-        import jax
-
-        from local_search_quantization_tpu.parallel.mesh import data_mesh
+        from local_search_quantization.parallel.mesh import data_mesh
 
         devs = jax.devices()[: args.mesh]
         if len(devs) < args.mesh:
@@ -147,13 +147,22 @@ def main():
     idx = Index.load(args.index)
     if not args.no_warmup:
         # Warm with the server's DEFAULT precision: a bf16 server must
-        # compile the hi-only program before "ready", not on the first
-        # request (~1-15 min per distinct jitted shape on this backend).
+        # compile its program before "ready", not on the first request.
         idx.search(np.zeros((1, idx.d), np.float32), min(args.k, idx.n),
                    mesh=mesh, precision=args.precision)
+    serve(idx, sys.stdin.buffer, sys.stdout.buffer, k=args.k,
+          nprobe=args.nprobe, refine=args.refine, precision=args.precision,
+          mesh=mesh, path=args.index)
 
-    stdin = sys.stdin.buffer
-    stdout = sys.stdout.buffer
+
+def serve(idx, stdin, stdout, *, k: int = 100, nprobe: int = 0,
+          refine: int = 0, precision: str = "f32", mesh=None,
+          path: str | None = None) -> None:
+    """Answer the protocol's requests from the binary stream `stdin` until
+    EOF, writing responses to the binary stream `stdout`. The defaults
+    are the server's (--k, --nprobe, --refine, --precision); `path` is
+    where "save" writes. Runs in-process, so one JAX process on the card
+    can both build an index and serve it (chip_smoke.py does)."""
 
     def emit(obj, blocks=()):
         stdout.write(json.dumps(obj).encode() + b"\n")
@@ -175,7 +184,7 @@ def main():
         return np.asarray(req["vectors"], np.float32)
 
     emit({"ready": True, "method": idx.method, "n": idx.n, "d": idx.d,
-          "k": args.k,
+          "k": k,
           "ivf_nlist": idx.ivf.nlist if idx.ivf else None,
           "refine": idx.refine.kind if idx.refine else None})
 
@@ -201,8 +210,8 @@ def main():
             # computable length, so its frame is DRAINED in bounded
             # chunks and the request answered as an error — one buggy
             # client must not take the server down. nb == 0 is rejected
-            # too (an [0, d] batch is a fresh jitted shape on TPU — a
-            # multi-minute remote-compile stall — and means nothing).
+            # too (an [0, d] batch is a fresh jitted shape — a compile
+            # stall — and means nothing).
             frame = None
             if req.get("binary_vectors") is not None:
                 nb = req["binary_vectors"]
@@ -240,21 +249,24 @@ def main():
                 out = {"id": req.get("id"), "removed": n0 - idx.n,
                        "n": idx.n}
             elif op == "save":
-                path = idx.save(args.index)
-                out = {"id": req.get("id"), "saved": path, "n": idx.n}
+                if path is None:
+                    raise ValueError("this server has no index directory "
+                                     "to save to")
+                saved = idx.save(path)
+                out = {"id": req.get("id"), "saved": saved, "n": idx.n}
             elif op == "add":
                 added = idx.add(parse_vectors(req, frame))
                 out = {"id": req.get("id"), "added": added, "n": idx.n}
             elif op == "query":
                 res = idx.search(parse_vectors(req, frame),
-                                 int(req.get("k", args.k)),
+                                 int(req.get("k", k)),
                                  mesh=mesh,
-                                 nprobe=int(req.get("nprobe", args.nprobe))
+                                 nprobe=int(req.get("nprobe", nprobe))
                                  or None,
-                                 refine=int(req.get("refine", args.refine))
+                                 refine=int(req.get("refine", refine))
                                  or None,
                                  precision=str(req.get("precision",
-                                                       args.precision)))
+                                                       precision)))
                 want_dists = bool(req.get("dists", True))
                 if req.get("binary", False):
                     ids = np.ascontiguousarray(

@@ -5,14 +5,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from local_search_quantization_tpu.models import train_pq
-from local_search_quantization_tpu.ops import adc, costs, norms
-from local_search_quantization_tpu.ops.subspaces import (
+from local_search_quantization.models import train_pq
+from local_search_quantization.ops import adc, costs, norms
+from local_search_quantization.ops.subspaces import (
     pq_full_codebooks,
     reconstruct_pq,
 )
-from local_search_quantization_tpu.utils.config import PQConfig
-from local_search_quantization_tpu.utils.eval import eval_recall
+from local_search_quantization.utils.config import PQConfig
+from local_search_quantization.utils.eval import eval_recall
 
 
 def test_linscan_pq_matches_bruteforce(rng):
@@ -136,402 +136,6 @@ def test_linscan_approx_topk_mode(rng):
     assert overlap > 0.8
 
 
-def test_linscan_select_kernel_exact(rng):
-    """The fused Pallas scan+select kernel returns the exact sorted top-k
-    (interpret mode off-TPU): distance parity with the streaming path and a
-    brute-force oracle, valid ids, odd query counts padded correctly."""
-    n, nq, d, m, h, k = 4096, 9, 8, 3, 8, 17
-    C = (rng.normal(size=(m, h, d))).astype(np.float32)
-    B = rng.integers(0, h, size=(n, m), dtype=np.int32)
-    Q = rng.normal(size=(nq, d)).astype(np.float32)
-    recon = np.asarray(costs.reconstruct(jnp.asarray(B), jnp.asarray(C)))
-    dbn = np.sum(recon * recon, axis=1).astype(np.float32)
-    exact = adc.linscan_lsq(B, Q, jnp.asarray(C), dbn, k=k, query_chunk=16,
-                            base_block=1024)
-    kern = adc.linscan_lsq(B, Q, jnp.asarray(C), dbn, k=k, query_chunk=16,
-                           base_block=1024, topk_method="kernel")
-    np.testing.assert_allclose(np.asarray(kern.dists), np.asarray(exact.dists),
-                               rtol=1e-4, atol=1e-4)
-    ids = np.asarray(kern.ids)
-    assert ids.min() >= 0 and ids.max() < n
-    # Sorted ascending, and ids consistent with the reported distances.
-    d_ = np.asarray(kern.dists)
-    assert (np.diff(d_, axis=1) >= -1e-6).all()
-    full = -2.0 * Q @ recon.T + dbn[None, :]
-    np.testing.assert_allclose(np.take_along_axis(full, ids, axis=1), d_,
-                               rtol=1e-4, atol=1e-4)
-
-
-def test_scan_topk_warm_start_exact_and_fallback(rng):
-    """Warm-started select kernel: (a) the sampled threshold path returns
-    the exact sorted top-k; (b) a deliberately-undersized sample rank
-    (t0 < true k-th distance) trips the exactness certificate and the
-    cold-run fallback, still returning the exact result."""
-    from local_search_quantization_tpu.ops.select_pallas import scan_topk_warm
-
-    n, nq, d, m, h, k = 8192, 5, 8, 3, 8, 33
-    C = (rng.normal(size=(m, h, d))).astype(np.float32)
-    B = rng.integers(0, h, size=(n, m), dtype=np.int32)
-    Q = rng.normal(size=(nq, d)).astype(np.float32)
-    recon = np.asarray(costs.reconstruct(jnp.asarray(B), jnp.asarray(C)))
-    dbn = np.sum(recon * recon, axis=1).astype(np.float32)
-    luts = adc.lsq_query_luts(jnp.asarray(Q), jnp.asarray(C))
-    full = -2.0 * Q @ recon.T + dbn[None, :]
-    oracle_d = np.sort(full, axis=1)[:, :k]
-
-    for rank in (None, 1):  # None = 6-sigma sampled rank; 1 = force fallback
-        dd, ii = scan_topk_warm(
-            luts, jnp.asarray(B.T), jnp.asarray(dbn), k=k, tb=1024,
-            interpret=True, sample_stride=4, min_n=0, min_k=0,
-            sample_rank=rank,
-        )
-        dd, ii = np.asarray(dd), np.asarray(ii)
-        np.testing.assert_allclose(dd, oracle_d, rtol=1e-4, atol=1e-4)
-        assert (np.diff(dd, axis=1) >= -1e-6).all()
-        np.testing.assert_allclose(
-            np.take_along_axis(full, ii, axis=1), dd, rtol=1e-4, atol=1e-4
-        )
-
-    # Deferred mode: the certificate comes back as a device flag — clear
-    # for a sound sample rank, set for the deliberately-broken one.
-    for rank, expect_bad in ((None, False), (1, True)):
-        _, _, bad = scan_topk_warm(
-            luts, jnp.asarray(B.T), jnp.asarray(dbn), k=k, tb=1024,
-            interpret=True, sample_stride=4, min_n=0, min_k=0,
-            sample_rank=rank, deferred=True,
-        )
-        assert bool(np.asarray(bad)) == expect_bad
-
-
-def test_select_kernel_unsorted_variant_matches_sorted(rng):
-    """The replace-worst + final-bitonic-sort variant must return exactly
-    the sorted variant's result (sorted ascending, same distances), with
-    and without warm start."""
-    from local_search_quantization_tpu.ops.select_pallas import (
-        fused_scan_topk,
-        scan_topk_warm,
-    )
-
-    n, nq, d, m, h, k = 8192, 7, 8, 3, 8, 33
-    C = (rng.normal(size=(m, h, d))).astype(np.float32)
-    B = rng.integers(0, h, size=(n, m), dtype=np.int32)
-    Q = rng.normal(size=(nq, d)).astype(np.float32)
-    recon = np.asarray(costs.reconstruct(jnp.asarray(B), jnp.asarray(C)))
-    dbn = np.sum(recon * recon, axis=1).astype(np.float32)
-    luts = adc.lsq_query_luts(jnp.asarray(Q), jnp.asarray(C))
-    full = -2.0 * Q @ recon.T + dbn[None, :]
-    oracle = np.sort(full, axis=1)[:, :k]
-
-    d1, _ = fused_scan_topk(luts, jnp.asarray(B.T), jnp.asarray(dbn), k=k,
-                            tb=1024, interpret=True, variant="sorted")
-    d2, i2 = fused_scan_topk(luts, jnp.asarray(B.T), jnp.asarray(dbn), k=k,
-                             tb=1024, interpret=True, variant="unsorted")
-    np.testing.assert_allclose(np.asarray(d2), np.asarray(d1), rtol=0, atol=0)
-    np.testing.assert_allclose(np.asarray(d2), oracle, rtol=1e-4, atol=1e-4)
-    np.testing.assert_allclose(
-        np.take_along_axis(full, np.asarray(i2), axis=1), np.asarray(d2),
-        rtol=1e-4, atol=1e-4,
-    )
-
-    dw, _ = scan_topk_warm(
-        luts, jnp.asarray(B.T), jnp.asarray(dbn), k=k, tb=1024, interpret=True,
-        sample_stride=4, min_n=0, min_k=0, variant="unsorted",
-    )
-    np.testing.assert_allclose(np.asarray(dw), oracle, rtol=1e-4, atol=1e-4)
-
-
-def test_select_kernel_unsorted_large_k_saturating(rng):
-    """Reference-depth geometry scaled down (k=10000 over 1M -> k=140 over
-    8192): warm-started unsorted variant where below-threshold inserts
-    EXCEED the cap-rounded buffer, so replace-worst genuinely replaces
-    (not just append-fills), with an explicit small query block (the
-    production large-k geometry bounds O(cap) insert passes with small
-    nqt). Must stay value-exact vs the f64-graded oracle."""
-    from local_search_quantization_tpu.ops.select_pallas import scan_topk_warm
-
-    n, nq, d, m, h, k = 8192, 9, 8, 3, 8, 140
-    C = (rng.normal(size=(m, h, d))).astype(np.float32)
-    B = rng.integers(0, h, size=(n, m), dtype=np.int32)
-    Q = rng.normal(size=(nq, d)).astype(np.float32)
-    recon = np.asarray(costs.reconstruct(jnp.asarray(B), jnp.asarray(C)))
-    dbn = np.sum(recon * recon, axis=1).astype(np.float32)
-    luts = adc.lsq_query_luts(jnp.asarray(Q), jnp.asarray(C))
-    full = -2.0 * Q @ recon.T + dbn[None, :]
-    oracle = np.sort(full, axis=1)[:, :k]
-    # cap rounds to 256; sampled t0 at stride 8 admits ~rank*8 ~ 350+
-    # elements, so the buffer saturates and replacement paths execute.
-    dw, iw = scan_topk_warm(
-        luts, jnp.asarray(B.T), jnp.asarray(dbn), k=k, tb=1024, nqt=4,
-        interpret=True, sample_stride=8, min_n=0, min_k=0,
-        variant="unsorted",
-    )
-    dw, iw = np.asarray(dw), np.asarray(iw)
-    np.testing.assert_allclose(dw, oracle, rtol=1e-4, atol=1e-4)
-    assert (np.diff(dw, axis=1) >= -1e-6).all()
-    np.testing.assert_allclose(
-        np.take_along_axis(full, iw, axis=1), dw, rtol=1e-4, atol=1e-4
-    )
-
-
-def test_select_kernel_bf16_precision_mode(rng):
-    """precision="bf16" (the hi-only serving mode) returns the EXACT
-    lexicographic top-k of distances computed from bf16-ROUNDED LUTs —
-    a deterministic contract, not a tolerance. Pinned against an oracle
-    that rounds the same way; the rounding must actually bite (the
-    rounded tables differ from f32); and the driver (_run_scan) must
-    apply the same rounding on its non-kernel routes so route parity
-    holds in this mode too."""
-    from local_search_quantization_tpu.ops.select_pallas import (
-        fused_scan_topk,
-        scan_topk_warm,
-    )
-
-    n, nq, d, m, h, k = 8192, 6, 8, 3, 8, 33
-    C = (rng.normal(size=(m, h, d))).astype(np.float32)
-    B = rng.integers(0, h, size=(n, m), dtype=np.int32)
-    Q = rng.normal(size=(nq, d)).astype(np.float32)
-    recon = np.asarray(costs.reconstruct(jnp.asarray(B), jnp.asarray(C)))
-    dbn = np.sum(recon * recon, axis=1).astype(np.float32)
-    luts = adc.lsq_query_luts(jnp.asarray(Q), jnp.asarray(C))
-
-    # Oracle over the ROUNDED tables (f64 sums of bf16-exact values =
-    # exact; kernel f32 accumulation differs by ulps, far below the
-    # boundary gaps on continuous data).
-    rl = np.asarray(jnp.asarray(luts).astype(jnp.bfloat16).astype(
-        jnp.float32), np.float64)
-    assert np.any(rl != np.asarray(luts)), "rounding must actually bite"
-    full_r = rl[:, np.arange(m)[:, None], B.T].sum(1) + dbn[None, :]
-    oracle_ids = np.lexsort(
-        (np.broadcast_to(np.arange(n), full_r.shape), full_r), axis=1
-    )[:, :k]
-    oracle_d = np.take_along_axis(full_r, oracle_ids, axis=1)
-
-    for variant in ("sorted", "grouped"):
-        db, ib = fused_scan_topk(
-            luts, jnp.asarray(B.T), jnp.asarray(dbn), k=k, tb=1024,
-            interpret=True, variant=variant, precision="bf16")
-        np.testing.assert_array_equal(np.asarray(ib), oracle_ids)
-        np.testing.assert_allclose(np.asarray(db), oracle_d,
-                                   rtol=1e-5, atol=1e-5)
-
-    # Warm path: pre-scan, threshold, certificate, and main scan all in
-    # the rounded metric.
-    dw, iw = scan_topk_warm(
-        luts, jnp.asarray(B.T), jnp.asarray(dbn), k=k, tb=1024,
-        interpret=True, sample_stride=4, min_n=0, min_k=0,
-        variant="grouped", precision="bf16")
-    np.testing.assert_array_equal(np.asarray(iw), oracle_ids)
-
-    # Driver routes: the streaming merge, the tournament, and the native
-    # C++ scanner all scan the SAME rounded tables (luts_fn is wrapped
-    # once in _run_scan, before routing), so their ids match the
-    # kernel's rounded-metric oracle id-for-id.
-    from local_search_quantization_tpu.utils import native as _nat
-
-    methods = ("exact", "tournament") + (
-        ("native",) if _nat.available() else ())
-    for method in methods:
-        res = adc.linscan_lsq(B, Q, jnp.asarray(C), dbn, k=k,
-                              query_chunk=8, base_block=1024,
-                              topk_method=method, precision="bf16")
-        np.testing.assert_array_equal(np.asarray(res.ids), oracle_ids)
-
-    # f32 vs bf16 quality on continuous data: the rounded mode's top-k
-    # overlaps the exact mode's almost entirely (measured recall deltas
-    # live in BASELINE.md; this pins "no gross quality cliff" in CI).
-    exact = adc.linscan_lsq(B, Q, jnp.asarray(C), dbn, k=k,
-                            query_chunk=8, base_block=1024,
-                            topk_method="exact")
-    overlap = np.mean([
-        len(set(map(int, a)) & set(map(int, b))) / k
-        for a, b in zip(np.asarray(exact.ids), oracle_ids)
-    ])
-    assert overlap >= 0.9, overlap
-
-    with pytest.raises(ValueError, match="precision"):
-        adc.linscan_lsq(B, Q, jnp.asarray(C), dbn, k=k, precision="fp8")
-
-
-def test_select_kernel_grouped_variant_matches_sorted(rng):
-    """The two-level fold-pyramid extraction (variant="grouped") must
-    return exactly the sorted variant's result — cold, warm, under heavy
-    exact ties (integer LUTs), and when k saturates near the buffer cap."""
-    from local_search_quantization_tpu.ops.select_pallas import (
-        fused_scan_topk,
-        scan_topk_warm,
-    )
-
-    n, nq, d, m, h, k = 8192, 7, 8, 3, 8, 33
-    C = (rng.normal(size=(m, h, d))).astype(np.float32)
-    B = rng.integers(0, h, size=(n, m), dtype=np.int32)
-    Q = rng.normal(size=(nq, d)).astype(np.float32)
-    recon = np.asarray(costs.reconstruct(jnp.asarray(B), jnp.asarray(C)))
-    dbn = np.sum(recon * recon, axis=1).astype(np.float32)
-    luts = adc.lsq_query_luts(jnp.asarray(Q), jnp.asarray(C))
-    full = -2.0 * Q @ recon.T + dbn[None, :]
-    oracle = np.sort(full, axis=1)[:, :k]
-
-    for tb in (512, 1024):
-        d1, _ = fused_scan_topk(luts, jnp.asarray(B.T), jnp.asarray(dbn),
-                                k=k, tb=tb, interpret=True, variant="sorted")
-        d2, i2 = fused_scan_topk(luts, jnp.asarray(B.T), jnp.asarray(dbn),
-                                 k=k, tb=tb, interpret=True,
-                                 variant="grouped")
-        np.testing.assert_allclose(np.asarray(d2), np.asarray(d1),
-                                   rtol=0, atol=0)
-        np.testing.assert_allclose(np.asarray(d2), oracle,
-                                   rtol=1e-4, atol=1e-4)
-        # Returned ids must carry their own exact distances.
-        np.testing.assert_allclose(
-            np.take_along_axis(full, np.asarray(i2), axis=1), np.asarray(d2),
-            rtol=1e-4, atol=1e-4,
-        )
-
-    dw, _ = scan_topk_warm(
-        luts, jnp.asarray(B.T), jnp.asarray(dbn), k=k, tb=1024,
-        interpret=True, sample_stride=4, min_n=0, min_k=0, variant="grouped",
-    )
-    np.testing.assert_allclose(np.asarray(dw), oracle, rtol=1e-4, atol=1e-4)
-
-    # Heavy exact ties: small-integer LUTs, zero extra term. Tie id-order
-    # is part of the contract: extraction is (value, id)-lexicographic
-    # (class_minima's lexicographic folds + min_arg128's abs-lane
-    # tie-break), so ids must match the sorted variant EXACTLY and both
-    # must match the lexicographic (dist, id) oracle — this is what keeps
-    # the Pallas route, the sharded-mesh route, and the native host
-    # scanner id-agreeing on tie-heavy (small-h) data.
-    luts_t = jnp.asarray(
-        rng.integers(0, 3, size=(nq, m, 8)).astype(np.float32)
-    )
-    full_t = np.asarray(luts_t)[:, np.arange(m)[:, None], B.T].sum(1)
-    oracle_t = np.sort(full_t, axis=1)[:, :k]
-    ids_t = np.lexsort(
-        (np.broadcast_to(np.arange(n), full_t.shape), full_t), axis=1
-    )[:, :k]
-    dt, it = fused_scan_topk(luts_t, jnp.asarray(B.T), jnp.zeros(n), k=k,
-                             tb=512, interpret=True, variant="grouped")
-    ds, is_ = fused_scan_topk(luts_t, jnp.asarray(B.T), jnp.zeros(n), k=k,
-                              tb=512, interpret=True, variant="sorted")
-    np.testing.assert_allclose(np.asarray(dt), oracle_t, rtol=0, atol=0)
-    np.testing.assert_array_equal(np.asarray(it), ids_t)
-    np.testing.assert_array_equal(np.asarray(is_), ids_t)
-    np.testing.assert_allclose(
-        np.take_along_axis(full_t, np.asarray(it), axis=1), np.asarray(dt),
-        rtol=0, atol=0,
-    )
-
-    # k saturating the 128-multiple cap (cold: exercises many outer
-    # pyramid rounds while the buffer fills); also the replace-worst
-    # flavor with its post-kernel sort, warm and cold.
-    k_big = 128
-    for v in ("grouped", "grouped_unsorted"):
-        d3, _ = fused_scan_topk(luts, jnp.asarray(B.T), jnp.asarray(dbn),
-                                k=k_big, tb=512, interpret=True, variant=v)
-        np.testing.assert_allclose(
-            np.asarray(d3), np.sort(full, axis=1)[:, :k_big],
-            rtol=1e-4, atol=1e-4,
-        )
-    dwu, _ = scan_topk_warm(
-        luts, jnp.asarray(B.T), jnp.asarray(dbn), k=k, tb=1024,
-        interpret=True, sample_stride=4, min_n=0, min_k=0,
-        variant="grouped_unsorted",
-    )
-    np.testing.assert_allclose(np.asarray(dwu), oracle, rtol=1e-4, atol=1e-4)
-
-
-def test_select_kernel_key_variant(rng):
-    """variant="key": hi-only scan + packed-monotone-key append extraction
-    + exact XLA re-rank. Contract: bad=False => value-exact sorted top-k;
-    an all-ties corpus must trip the certificate deterministically (the
-    strict threshold extracts nothing, so d_k stays +inf)."""
-    from local_search_quantization_tpu.ops.select_pallas import (
-        scan_topk_warm,
-    )
-
-    n, nq, d, m, h, k = 8192, 6, 8, 3, 8, 33
-    C = (rng.normal(size=(m, h, d))).astype(np.float32)
-    B = rng.integers(0, h, size=(n, m), dtype=np.int32)
-    Q = rng.normal(size=(nq, d)).astype(np.float32)
-    recon = np.asarray(costs.reconstruct(jnp.asarray(B), jnp.asarray(C)))
-    dbn = np.sum(recon * recon, axis=1).astype(np.float32)
-    luts = adc.lsq_query_luts(jnp.asarray(Q), jnp.asarray(C))
-    full = -2.0 * Q @ recon.T + dbn[None, :]
-    oracle = np.sort(full, axis=1)[:, :k]
-
-    # Warm key path, deferred certificate.
-    dw, iw, badw = scan_topk_warm(
-        luts, jnp.asarray(B.T), jnp.asarray(dbn), k=k, tb=1024,
-        interpret=True, sample_stride=4, min_n=0, min_k=0, variant="key",
-        deferred=True,
-    )
-    assert not bool(np.asarray(badw))
-    np.testing.assert_allclose(np.asarray(dw), oracle, rtol=1e-4, atol=1e-4)
-    np.testing.assert_allclose(
-        np.take_along_axis(full, np.asarray(iw), axis=1), np.asarray(dw),
-        rtol=1e-4, atol=1e-4,
-    )
-    assert (np.diff(np.asarray(dw), axis=1) >= -1e-6).all()
-
-    # Non-deferred wrapper resolves the certificate itself (falls back to
-    # the exact path when needed) — result must be exact either way.
-    dw2, _ = scan_topk_warm(
-        luts, jnp.asarray(B.T), jnp.asarray(dbn), k=k, tb=1024,
-        interpret=True, sample_stride=4, min_n=0, min_k=0, variant="key",
-    )
-    np.testing.assert_allclose(np.asarray(dw2), oracle, rtol=1e-4,
-                               atol=1e-4)
-
-    # All-ties corpus: every distance identical; the strict key threshold
-    # extracts nothing, the re-ranked k-th stays +inf, and the
-    # certificate MUST refuse (the non-deferred wrapper then falls back
-    # and still returns the exact — constant — distances).
-    C0 = np.zeros((m, h, d), np.float32)
-    luts0 = adc.lsq_query_luts(jnp.asarray(Q), jnp.asarray(C0))
-    dbn0 = np.full(n, 7.0, np.float32)
-    _, _, bad0 = scan_topk_warm(
-        luts0, jnp.asarray(B.T), jnp.asarray(dbn0), k=k, tb=1024,
-        interpret=True, sample_stride=4, min_n=0, min_k=0, variant="key",
-        deferred=True,
-    )
-    assert bool(np.asarray(bad0))
-    d0, _ = scan_topk_warm(
-        luts0, jnp.asarray(B.T), jnp.asarray(dbn0), k=k, tb=1024,
-        interpret=True, sample_stride=4, min_n=0, min_k=0, variant="key",
-    )
-    np.testing.assert_allclose(np.asarray(d0), np.full((nq, k), 7.0),
-                               rtol=1e-6, atol=1e-6)
-
-
-def test_deepk_kernel_boundary_tie_widen(rng):
-    """k > 2048 routes to the grouped_unsorted kernel, whose value-strict
-    threshold is arrival-biased about WHICH tie-mates survive the k-th-
-    value boundary. The two-phase widen (VERDICT r3 item 5) must restore
-    the exact lexicographic contract: _run_scan requests k+1 columns,
-    d[k-1] < d[k] certifies no boundary tie-mate was skipped, and tied
-    queries rerun through the lex-exact grouped sorted kernel. Tie-heavy
-    duplicated codes at h=4 make the boundary tie block hundreds wide, so
-    without the widen this fails with near-certainty."""
-    n, nq, d, m, h, k = 6000, 3, 8, 2, 4, 2100
-    C_sub = jnp.asarray(rng.normal(size=(m, h, d // m)).astype(np.float32))
-    B = rng.integers(0, h, size=(n, m), dtype=np.int32)
-    B[n // 2:] = B[: n - n // 2]  # massive exact ties
-    Q = rng.normal(size=(nq, d)).astype(np.float32)
-    res = adc.linscan_pq(B, Q, C_sub, k=k, topk_method="kernel")
-    luts = np.asarray(adc.pq_query_luts(jnp.asarray(Q), C_sub))
-    full = luts[:, np.arange(m)[:, None], B.T].sum(1)
-    ids_lex = np.lexsort(
-        (np.broadcast_to(np.arange(n), full.shape), full), axis=1
-    )[:, :k]
-    # The kernel's hi/lo-split distances are f32-grade but not bitwise
-    # numpy f32 sums; the ID set under ties is still pinned exactly
-    # because whole tie blocks share one LUT-entry sum in both
-    # arithmetics (small-integer-free but exactly-duplicated gathers).
-    np.testing.assert_array_equal(np.asarray(res.ids), ids_lex)
-    np.testing.assert_allclose(
-        np.asarray(res.dists),
-        np.take_along_axis(full, ids_lex, axis=1), rtol=1e-4, atol=1e-4)
-
-
 def test_linscan_base_segmentation_matches_whole(rng):
     """Host-side base segmentation (the >HBM streaming path) must return
     exactly the whole-base result, ids globally offset."""
@@ -548,30 +152,6 @@ def test_linscan_base_segmentation_matches_whole(rng):
     np.testing.assert_allclose(np.asarray(seg.dists), np.asarray(whole.dists),
                                rtol=1e-5, atol=1e-5)
     assert np.asarray(seg.ids).min() >= 0 and np.asarray(seg.ids).max() < n
-
-
-def test_select_kernel_non_lane_aligned_h(rng):
-    """h not a multiple of the 128-lane width must pad transparently in
-    the select kernel (codes never reach padded LUT columns)."""
-    from local_search_quantization_tpu.ops.select_pallas import fused_scan_topk
-
-    for h in (20, 200):
-        n, nq, d, m, k = 2048, 3, 8, 3, 9
-        C = (rng.normal(size=(m, h, d))).astype(np.float32)
-        B = rng.integers(0, h, size=(n, m), dtype=np.int32)
-        Q = rng.normal(size=(nq, d)).astype(np.float32)
-        recon = np.asarray(costs.reconstruct(jnp.asarray(B), jnp.asarray(C)))
-        dbn = np.sum(recon * recon, axis=1).astype(np.float32)
-        luts = adc.lsq_query_luts(jnp.asarray(Q), jnp.asarray(C))
-        dd, ii = fused_scan_topk(
-            luts, jnp.asarray(B.T), jnp.asarray(dbn), k=k, tb=512,
-            interpret=True,
-        )
-        full = -2.0 * Q @ recon.T + dbn[None, :]
-        oracle = np.sort(full, axis=1)[:, :k]
-        np.testing.assert_allclose(np.asarray(dd), oracle, rtol=1e-4,
-                                   atol=1e-4)
-        assert np.asarray(ii).max() < n
 
 
 def test_linscan_tournament_exactly_matches_streaming(rng, monkeypatch):
@@ -615,14 +195,14 @@ def test_linscan_tournament_exactly_matches_streaming(rng, monkeypatch):
     np.testing.assert_allclose(np.asarray(two.dists), oracle_d,
                                rtol=1e-4, atol=1e-4)
 
-    # Certified recompute mode end-to-end (LSQ_TPU_TOPK_STORE=0 forces
+    # Certified recompute mode end-to-end (LSQ_TOPK_STORE=0 forces
     # the O(1)-memory route through _run_scan): the cross-metric
-    # certificate's summand-magnitude slack (advisor r4 fix) must flag
+    # certificate's summand-magnitude slack must flag
     # boundary ties without being poisoned by +inf tombstone entries in
     # `extra` (an inf-scaled slack would flag EVERY query and rerun the
     # whole batch), and the rerouted results must still match the
     # streaming merge id-for-id.
-    monkeypatch.setenv("LSQ_TPU_TOPK_STORE", "0")
+    monkeypatch.setenv("LSQ_TOPK_STORE", "0")
     dbn_t = dbnorms.copy()
     dbn_t[:7] = np.inf  # tombstones ride the extra term
     ex_t = adc.linscan_lsq(B, Q, jnp.asarray(C), dbn_t, k=k, query_chunk=8,
@@ -667,7 +247,7 @@ def test_scan_sentinel_contract(rng, method):
     back into finite-distance results, resurrecting deletes). The exact
     streaming merge preserves -1 only through top_k's prefer-lower-index
     tie rule + the carry-first concat order — this pins that too."""
-    from local_search_quantization_tpu.utils import native as nat
+    from local_search_quantization.utils import native as nat
 
     if method == "native" and not nat.available():
         pytest.skip("native library not built")
@@ -686,80 +266,11 @@ def test_scan_sentinel_contract(rng, method):
     assert (ids[:, 10:] == -1).all(), ids[:, 10:]
 
 
-def test_select_geometry_defaults(monkeypatch):
-    """select_geometry is the single source of the kernel's default
-    (variant, tb, nqt) for both query routes (ops/adc._run_scan and
-    parallel/query.sharded_scan_topk). Pins the measured-optimal round-3
-    sweep outcome (BASELINE.md "grouped variant" section) and the env
-    override + tiny-base tb capping contracts."""
-    from local_search_quantization_tpu.ops.select_pallas import (
-        select_geometry,
-    )
-
-    for var in ("LSQ_TPU_SELECT_VARIANT", "LSQ_TPU_SELECT_TB",
-                "LSQ_TPU_SELECT_NQT"):
-        monkeypatch.delenv(var, raising=False)
-    assert select_geometry(1000) == ("grouped", 8192, None)
-    assert select_geometry(2048) == ("grouped", 8192, None)
-    assert select_geometry(2049) == ("grouped_unsorted", 8192, 256)
-    assert select_geometry(10000) == ("grouped_unsorted", 8192, 256)
-    # Tiny bases cap tb (interpret-mode tests should not pad 100 rows to
-    # 8192) but never below the 128-lane minimum, and keep power-of-two.
-    assert select_geometry(10, n=100) == ("grouped", 256, None)
-    assert select_geometry(10, n=5000) == ("grouped", 8192, None)
-    v, tb, _ = select_geometry(10, n=1)
-    assert tb == 256 and (tb & (tb - 1)) == 0
-    # Code-width rules (measured, BASELINE.md 128-bit section): tb=8192
-    # wins through m*h=4096 (the bf16 one-hot tile still fits; the auto
-    # query block steps down instead); only wider LUTs (h=512 wide codes)
-    # halve the tile. Deep-k wide geometries step nqt 256 -> 128 (the
-    # 64-bit nqt=256 default is a measured OOM at m*h=4096/tb=8192).
-    assert select_geometry(1000, mh=1792) == ("grouped", 8192, None)
-    assert select_geometry(1000, mh=2048) == ("grouped", 8192, None)
-    assert select_geometry(1000, mh=3840) == ("grouped", 8192, None)
-    assert select_geometry(1000, mh=4096) == ("grouped", 8192, None)
-    # mh=8192 (m=16 at h=512): tb=4096 is MEASURED-optimal on-chip
-    # (round-5 wide-LUT row: 3,485 qps warm vs 3,372 at tb=2048 and an
-    # OOM at tb=8192) — the 70 MB tile rule lands exactly there, with
-    # the kernel's auto-nqt guard stepping the query block down.
-    assert select_geometry(1000, mh=8192) == ("grouped", 4096, None)
-    assert select_geometry(1000, m=16, h=512) == ("grouped", 4096, None)
-    assert select_geometry(1000, m=15, h=512) == ("grouped", 4096, None)
-    assert select_geometry(1000, mh=4608) == ("grouped", 4096, None)
-    assert select_geometry(10000, mh=1792) == ("grouped_unsorted", 8192, 256)
-    assert select_geometry(10000, mh=4096) == ("grouped_unsorted", 8192, 128)
-    # The (m, h) form applies the kernel's 128-lane h padding itself —
-    # the form both query routes use, so their VMEM model can't diverge
-    # from the kernel's allocation; mixing forms is an error.
-    assert select_geometry(1000, m=7, h=256) == select_geometry(1000, mh=1792)
-    assert select_geometry(10000, m=16, h=256) == select_geometry(
-        10000, mh=4096)
-    assert select_geometry(1000, m=7, h=20) == select_geometry(1000, mh=896)
-    with pytest.raises(ValueError, match="together"):
-        select_geometry(1000, mh=1792, m=7, h=256)
-    with pytest.raises(ValueError, match="together"):
-        select_geometry(1000, m=7)
-    # Env overrides (tuning sweeps) win over the measured defaults.
-    monkeypatch.setenv("LSQ_TPU_SELECT_VARIANT", "sorted")
-    monkeypatch.setenv("LSQ_TPU_SELECT_TB", "2048")
-    monkeypatch.setenv("LSQ_TPU_SELECT_NQT", "512")
-    assert select_geometry(1000) == ("sorted", 2048, 512)
-    # The grouped fold pyramid needs a power-of-two tb >= 128: both bad
-    # shapes must fail at the env boundary with the remedy, not in-kernel.
-    monkeypatch.setenv("LSQ_TPU_SELECT_VARIANT", "grouped")
-    monkeypatch.setenv("LSQ_TPU_SELECT_TB", "3000")
-    with pytest.raises(ValueError, match="power of two"):
-        select_geometry(1000)
-    monkeypatch.setenv("LSQ_TPU_SELECT_TB", "64")
-    with pytest.raises(ValueError, match="power of two"):
-        select_geometry(1000)
-
-
 def test_pad_rerun_idx_buckets_shapes():
     """Every tie-rerun site feeds a data-dependent number of tied queries
     into a jitted scan; pad_rerun_idx must bucket that leading dim to a
     power of two >= 8 (each DISTINCT count would otherwise be a fresh
-    multi-minute remote compile) while keeping the original indices as a
+    compile) while keeping the original indices as a
     prefix so callers can scatter back the first len(tq) rows."""
     for count in (1, 2, 7, 8, 9, 129, 1000):
         tq = np.arange(count, dtype=np.int64) * 3
@@ -777,8 +288,9 @@ def test_pad_rerun_idx_buckets_shapes():
 def test_run_scan_device_state_matches_fresh_upload(rng):
     """prepare_device_codes + device_state (the serving-side code cache,
     Index._device_scan_state) must be result-identical to the per-call
-    upload on both the streaming and kernel routes, and a state built for
-    a different base/base_block must be rejected, not silently scanned."""
+    upload on both the streaming and tournament routes, and a state built
+    for a different base/base_block must be rejected, not silently
+    scanned."""
     n, nq, d, m, h = 1000, 6, 8, 2, 8
     C_sub = (rng.normal(size=(m, h, d // m)) * 0.5).astype(np.float32)
     B = rng.integers(0, h, size=(n, m), dtype=np.int32)
@@ -786,7 +298,7 @@ def test_run_scan_device_state_matches_fresh_upload(rng):
     state = adc.prepare_device_codes(B, None, base_block=256)
     assert state[0].shape == (m, 1024)  # padded to the block multiple
     assert bool(jnp.isinf(state[1][n:]).all())  # pads can never win
-    for method in ("exact", "kernel"):
+    for method in ("exact", "tournament"):
         fresh = adc.linscan_pq(B, Q, C_sub, k=10, topk_method=method,
                                base_block=256)
         cached = adc.linscan_pq(B, Q, C_sub, k=10, topk_method=method,
@@ -816,3 +328,118 @@ def test_quantize_norms_chunked_matches_single_launch(rng):
     chunked = np.asarray(norms.quantize_norms(B, jnp.asarray(C), cb,
                                               block=256))
     np.testing.assert_array_equal(chunked, whole)
+
+
+@pytest.mark.parametrize("mode", ["gather", "matmul"])
+def test_exact_route_within_precision_contract(rng, mode):
+    """The exact streaming route against the f64 oracle at SIFT-like
+    magnitudes (m=8, h=256): every returned distance is within
+    SCAN_REL_TOL * scan_error_scale of the f64 sum of the same f32 LUT
+    entries, every returned id lies within that band of the k-th value,
+    and no id below the band is missing."""
+    n, nq, d, m, h, k = 4096, 8, 32, 8, 256, 50
+    C = (rng.normal(size=(m, h, d)) * 12.0).astype(np.float32)
+    B = rng.integers(0, h, size=(n, m)).astype(np.uint8)
+    Q = (rng.normal(size=(nq, d)) * 30.0).astype(np.float32)
+    recon = np.asarray(costs.reconstruct(jnp.asarray(B.astype(np.int32)),
+                                         jnp.asarray(C)))
+    dbn = np.sum(recon * recon, axis=1).astype(np.float32)
+    res = adc.linscan_lsq(B, Q, jnp.asarray(C), dbn, k=k, mode=mode,
+                          topk_method="exact", base_block=1024)
+    luts = adc.lsq_query_luts(jnp.asarray(Q), jnp.asarray(C))
+    luts64 = np.asarray(luts, np.float64)
+    full = luts64[:, np.arange(m)[:, None], B.T].sum(1) + dbn[None, :]
+    tol = adc.SCAN_REL_TOL * np.asarray(
+        adc.scan_error_scale(luts, jnp.asarray(dbn)), np.float64)[:, None]
+    ids, dists = np.asarray(res.ids), np.asarray(res.dists)
+    at = np.take_along_axis(full, ids, axis=1)
+    assert (np.abs(dists - at) <= tol).all()
+    kth = np.sort(full, axis=1)[:, k - 1:k]
+    assert (at <= kth + tol).all()
+    got = np.zeros(full.shape, bool)
+    np.put_along_axis(got, ids, True, axis=1)
+    assert not ((full < kth - tol) & ~got).any()
+
+
+@pytest.mark.parametrize("h", [20, 200])
+def test_exact_route_odd_h(rng, h):
+    """h off any power of two scans exactly (codes index the LUT columns
+    directly; no padded column can be selected)."""
+    n, nq, d, m, k = 2048, 3, 8, 3, 9
+    C = (rng.normal(size=(m, h, d))).astype(np.float32)
+    B = rng.integers(0, h, size=(n, m), dtype=np.int32)
+    Q = rng.normal(size=(nq, d)).astype(np.float32)
+    recon = np.asarray(costs.reconstruct(jnp.asarray(B), jnp.asarray(C)))
+    dbn = np.sum(recon * recon, axis=1).astype(np.float32)
+    res = adc.linscan_lsq(B, Q, jnp.asarray(C), dbn, k=k, base_block=512,
+                          topk_method="exact")
+    full = -2.0 * Q @ recon.T + dbn[None, :]
+    np.testing.assert_allclose(np.asarray(res.dists),
+                               np.sort(full, axis=1)[:, :k],
+                               rtol=1e-4, atol=1e-4)
+    assert np.asarray(res.ids).min() >= 0 and np.asarray(res.ids).max() < n
+
+
+@pytest.mark.parametrize("method", ["exact", "tournament"])
+def test_deepk_tie_blocks_lexicographic(rng, method):
+    """Deep k over tie-heavy duplicated codes (h=4: the boundary tie block
+    is hundreds wide): the returned ids are the (dist, id)-lexicographic
+    oracle's, id for id — the streaming merge by construction, the
+    tournament through its certify/rerun phase."""
+    n, nq, d, m, h, k = 12000, 3, 8, 2, 4, 2100
+    C_sub = jnp.asarray(rng.normal(size=(m, h, d // m)).astype(np.float32))
+    B = rng.integers(0, h, size=(n, m), dtype=np.int32)
+    B[n // 2:] = B[: n - n // 2]  # massive exact ties
+    Q = rng.normal(size=(nq, d)).astype(np.float32)
+    res = adc.linscan_pq(B, Q, C_sub, k=k, topk_method=method,
+                         base_block=4096)
+    luts = np.asarray(adc.pq_query_luts(jnp.asarray(Q), C_sub))
+    full = luts[:, np.arange(m)[:, None], B.T].sum(1)
+    ids_lex = np.lexsort(
+        (np.broadcast_to(np.arange(n), full.shape), full), axis=1
+    )[:, :k]
+    np.testing.assert_array_equal(np.asarray(res.ids), ids_lex)
+    np.testing.assert_allclose(
+        np.asarray(res.dists),
+        np.take_along_axis(full, ids_lex, axis=1), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("method", ["exact", "tournament", "native"])
+def test_bf16_rounded_metric_ids_equal_oracle(rng, method):
+    """precision="bf16" returns the EXACT lexicographic top-k of distances
+    computed from bf16-ROUNDED LUTs — a deterministic contract, not a
+    tolerance — on every route, because _run_scan rounds the tables once
+    before routing. The rounding must actually bite, and the rounded
+    mode must not fall off a quality cliff against f32."""
+    from local_search_quantization.utils import native as _nat
+
+    if method == "native" and not _nat.available():
+        pytest.skip("native library not built")
+    n, nq, d, m, h, k = 8192, 6, 8, 3, 8, 33
+    C = (rng.normal(size=(m, h, d))).astype(np.float32)
+    B = rng.integers(0, h, size=(n, m), dtype=np.int32)
+    Q = rng.normal(size=(nq, d)).astype(np.float32)
+    recon = np.asarray(costs.reconstruct(jnp.asarray(B), jnp.asarray(C)))
+    dbn = np.sum(recon * recon, axis=1).astype(np.float32)
+    luts = adc.lsq_query_luts(jnp.asarray(Q), jnp.asarray(C))
+    # Oracle over the ROUNDED tables (f64 sums of bf16-exact values).
+    rl = np.asarray(jnp.asarray(luts).astype(jnp.bfloat16).astype(
+        jnp.float32), np.float64)
+    assert np.any(rl != np.asarray(luts)), "rounding must actually bite"
+    full_r = rl[:, np.arange(m)[:, None], B.T].sum(1) + dbn[None, :]
+    oracle_ids = np.lexsort(
+        (np.broadcast_to(np.arange(n), full_r.shape), full_r), axis=1
+    )[:, :k]
+    res = adc.linscan_lsq(B, Q, jnp.asarray(C), dbn, k=k, query_chunk=8,
+                          base_block=1024, topk_method=method,
+                          precision="bf16")
+    np.testing.assert_array_equal(np.asarray(res.ids), oracle_ids)
+    exact = adc.linscan_lsq(B, Q, jnp.asarray(C), dbn, k=k, query_chunk=8,
+                            base_block=1024, topk_method=method)
+    overlap = np.mean([
+        len(set(map(int, a)) & set(map(int, b))) / k
+        for a, b in zip(np.asarray(exact.ids), oracle_ids)
+    ])
+    assert overlap >= 0.9, overlap
+    with pytest.raises(ValueError, match="precision"):
+        adc.linscan_lsq(B, Q, jnp.asarray(C), dbn, k=k, precision="fp8")

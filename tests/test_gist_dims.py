@@ -16,16 +16,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from local_search_quantization_tpu.models import (
+from local_search_quantization.models import (
     train_lsq,
     train_pq,
     quantize_pq,
 )
-from local_search_quantization_tpu.ops import adc, costs, norms
-from local_search_quantization_tpu.ops.subspaces import padded_width
-from local_search_quantization_tpu.utils.config import LSQConfig, PQConfig
-from local_search_quantization_tpu.utils.eval import eval_recall
-from local_search_quantization_tpu.utils.synth import (
+from local_search_quantization.ops import adc, costs, norms
+from local_search_quantization.ops.subspaces import padded_width
+from local_search_quantization.utils.config import LSQConfig, PQConfig
+from local_search_quantization.utils.eval import eval_recall
+from local_search_quantization.utils.synth import (
     random_codes,
     synthetic_dataset,
 )
@@ -52,7 +52,7 @@ def test_pq_gist_uneven_split_exact_adc(gist):
                          query_chunk=40, base_block=1024)
 
     # Oracle: reconstruct the padded subspaces, compare true distances.
-    from local_search_quantization_tpu.ops.subspaces import merge_subspaces
+    from local_search_quantization.ops.subspaces import merge_subspaces
 
     xhat_blocks = jnp.take_along_axis(
         jnp.asarray(model.C_sub),
@@ -108,7 +108,7 @@ def test_lsq_gist_train_encode_query(gist):
     # Encode a base slice and query through the additive scanner.
     nb = 1200
     base = gist.base[:nb]
-    from local_search_quantization_tpu.ops import icm
+    from local_search_quantization.ops import icm
 
     enc = icm.encode_chunked(
         jax.random.PRNGKey(5), base, random_codes(2, nb, m, h), lsq.C,

@@ -1,4 +1,4 @@
-"""Golden end-to-end recall gates (VERDICT r2 item 2).
+"""Golden end-to-end recall gates.
 
 Pins recall@{1,10,100} for PQ, OPQ, and LSQ-8/LSQ-16 on the deterministic
 SIFT-statistics corpus (utils/synth.py v5) at a CI-scale config. The
@@ -19,7 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from local_search_quantization_tpu.models import (
+from local_search_quantization.models import (
     train_chainq,
     train_lsq,
     train_opq,
@@ -27,14 +27,14 @@ from local_search_quantization_tpu.models import (
     quantize_opq,
     quantize_pq,
 )
-from local_search_quantization_tpu.ops import adc, icm, norms
-from local_search_quantization_tpu.utils.config import (
+from local_search_quantization.ops import adc, icm, norms
+from local_search_quantization.utils.config import (
     ChainQConfig,
     LSQConfig,
     OPQConfig,
     PQConfig,
 )
-from local_search_quantization_tpu.utils.synth import (
+from local_search_quantization.utils.synth import (
     random_codes,
     synthetic_dataset,
 )
@@ -84,7 +84,7 @@ def data():
 def recall_at(gt, ids, ns=(1, 10, 100)):
     # Thin adapter over the production curve (utils/eval.py) so the gates
     # pin exactly what eval_recall/repro report — no second recall impl.
-    from local_search_quantization_tpu.utils.eval import eval_recall
+    from local_search_quantization.utils.eval import eval_recall
 
     curve = eval_recall(gt, ids, max(ns), verbose=False)
     return {n: float(curve[n - 1]) for n in ns}
@@ -115,10 +115,10 @@ def test_golden_opq(data):
 
 
 def test_golden_rvq(data):
-    from local_search_quantization_tpu.models import train_rvq
-    from local_search_quantization_tpu.models.rvq import quantize_rvq
-    from local_search_quantization_tpu.ops import norms
-    from local_search_quantization_tpu.utils.config import RVQConfig
+    from local_search_quantization.models import train_rvq
+    from local_search_quantization.models.rvq import quantize_rvq
+    from local_search_quantization.ops import norms
+    from local_search_quantization.utils.config import RVQConfig
 
     mod = train_rvq(data.train, RVQConfig(m=7, h=64, kmeans_maxiter=30,
                                           seed=0))
@@ -130,7 +130,7 @@ def test_golden_rvq(data):
 
 
 def test_golden_chainq(data):
-    from local_search_quantization_tpu.ops import viterbi
+    from local_search_quantization.ops import viterbi
 
     m, h = 7, 64
     opq7 = train_opq(data.train, OPQConfig(m=m, h=h, niter=6, seed=0))
@@ -171,8 +171,8 @@ def test_golden_slsq(data):
     R=I, SLSQ1 budget S=d*h with tau = 0.7*||C_PQ||_1. Gates BOTH sides of
     the trade the method exists for: the codebooks actually go sparse
     (l0 <= S < dense) AND recall stays in the LSQ family's band."""
-    from local_search_quantization_tpu.models.slsq import train_lsq_sparse
-    from local_search_quantization_tpu.utils.config import SLSQConfig
+    from local_search_quantization.models.slsq import train_lsq_sparse
+    from local_search_quantization.utils.config import SLSQConfig
 
     m, h = 7, 64
     d = data.train.shape[1]

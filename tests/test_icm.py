@@ -3,8 +3,9 @@
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
-from local_search_quantization_tpu.ops import costs, icm, luts
+from local_search_quantization.ops import costs, icm, luts
 
 
 def brute_force_best_code(X, C, j, B):
@@ -138,7 +139,7 @@ def test_condition_matmul_matches_gather_exactly_on_small_ints(rng):
     """bf16 one-hot matmul conditioning == gather conditioning when all LUT
     values are small integers (exactly representable in bf16)."""
     import jax.numpy as jnp
-    from local_search_quantization_tpu.ops.icm import _condition, _condition_matmul
+    from local_search_quantization.ops.icm import _condition, _condition_matmul
 
     n, d, m, h = 32, 6, 4, 8
     C = rng.integers(-2, 3, size=(m, h, d)).astype(np.float32)
@@ -175,8 +176,8 @@ def test_ils_encode_matmul_mode_invariants(rng):
 
 def test_ils_milestones_and_stats(rng):
     """milestones=(2,4) from ONE run: per-vector non-increasing costs across
-    milestones, final == last milestone, stats in range. Both the scan path
-    and the whole-ILS kernel path (interpret) must agree on semantics.
+    milestones, final == last milestone, stats in range, in both
+    conditioning modes.
     (Reference: ilsiters vector API, encode_icm_cuda.jl:26,211-222; accept
     stats prints, encode_icm.jl:181-184.)"""
     n, d, m, h = 128, 16, 4, 16
@@ -185,7 +186,7 @@ def test_ils_milestones_and_stats(rng):
     B0 = rng.integers(0, h, size=(n, m), dtype=np.int32)
     cost0 = np.asarray(costs.veccost(jnp.asarray(X), jnp.asarray(B0), jnp.asarray(C)))
 
-    for mode in ("gather", "kernel"):
+    for mode in ("gather", "matmul"):
         tr = icm.ils_encode(
             jax.random.PRNGKey(3), jnp.asarray(X), jnp.asarray(B0),
             jnp.asarray(C), ilsiter=4, icmiter=2, npert=1,
@@ -215,70 +216,12 @@ def test_ils_milestones_and_stats(rng):
         assert fb.max() > 0  # something improved in 4 rounds
 
 
-def test_kernel_mode_non_lane_aligned_h(rng):
-    """h not a multiple of the 128-lane width must work in kernel mode.
-
-    Without the pad-to-128 guard in fused_ils_encode, Mosaic rejects the
-    [tile, m, h] -> [tile, m*h] shape cast ("unsupported shape cast", found
-    live running demo_lsq --h 64 on a v5e). Interpret mode validates that
-    padded columns are never selected and costs stay exact."""
-    for h in (64, 20):
-        n, d, m = 96, 16, 4
-        X = rng.normal(size=(n, d)).astype(np.float32)
-        C = (rng.normal(size=(m, h, d)) * 0.3).astype(np.float32)
-        B0 = rng.integers(0, h, size=(n, m), dtype=np.int32)
-        cost0 = np.asarray(
-            costs.veccost(jnp.asarray(X), jnp.asarray(B0), jnp.asarray(C))
-        )
-        res = icm.ils_encode(
-            jax.random.PRNGKey(2), jnp.asarray(X), jnp.asarray(B0),
-            jnp.asarray(C), ilsiter=2, icmiter=2, npert=1,
-            condition_mode="kernel",
-        )
-        B = np.asarray(res.B)
-        assert B.min() >= 0 and B.max() < h  # padded codes never escape
-        newcost = np.asarray(costs.veccost(jnp.asarray(X), res.B, jnp.asarray(C)))
-        assert (newcost <= cost0 + 1e-3).all()
-        assert newcost.mean() < cost0.mean()
-
-
-def test_fused_ils_kernel_m8_both_variants(rng):
-    """The m=8 PQ-width config through BOTH kernel variants (plain and
-    split-half pipelined): the reference's CUDA kernel hard-codes h=256 and
-    breaks off it (cudautils.cu:58,93-95); ours must be shape-generic.
-    Checks accept-if-better, code range, and fp32-grade in-kernel cost."""
-    from local_search_quantization_tpu.ops.icm_pallas import fused_ils_encode
-
-    n, d, m, h = 96, 16, 8, 32
-    X = rng.normal(size=(n, d)).astype(np.float32)
-    C = (rng.normal(size=(m, h, d)) * 0.3).astype(np.float32)
-    B0 = rng.integers(0, h, size=(n, m), dtype=np.int32)
-    unaries = luts.get_unaries(jnp.asarray(X), jnp.asarray(C))
-    binaries = luts.get_binaries(jnp.asarray(C))
-    xsq = jnp.sum(jnp.asarray(X) ** 2, axis=-1)
-    cost0 = np.asarray(icm.cost_from_luts(xsq, unaries, binaries, jnp.asarray(B0)))
-    orders = jnp.tile(jnp.arange(m, dtype=jnp.int32), (3, 1))
-    for variant in ("base", "pp", "pp4"):
-        B, kcost, _, _, _ = fused_ils_encode(
-            jax.random.PRNGKey(5), orders, unaries, binaries, xsq,
-            jnp.asarray(B0), ilsiter=3, icmiter=2, npert=2,
-            interpret=True, variant=variant,
-        )
-        B = np.asarray(B)
-        assert B.min() >= 0 and B.max() < h, variant
-        exact = np.asarray(icm.cost_from_luts(xsq, unaries, binaries, jnp.asarray(B)))
-        np.testing.assert_allclose(
-            np.asarray(kcost), exact, rtol=1e-4, atol=1e-3, err_msg=variant
-        )
-        assert (exact <= cost0 + 1e-3).all(), variant
-        assert exact.mean() < cost0.mean(), variant
-
-
 def test_ils_encode_fuzz_shapes(rng):
-    """Randomized (m, h, d, n) sweep: the kernel path must uphold the
-    accept-if-better contract at arbitrary shapes (insurance against the
-    reference's hard-coded-shape failure mode, cudautils.cu:58,93-95)."""
-    for _ in range(5):
+    """Randomized (m, h, d, n) sweep: both conditioning modes must uphold
+    the accept-if-better contract at arbitrary shapes (insurance against
+    the reference's hard-coded-shape failure mode, cudautils.cu:58,93-95)."""
+    for it in range(6):
+        mode = ("gather", "matmul")[it % 2]
         m = int(rng.integers(2, 9))
         h = int(rng.integers(3, 40))
         d = int(rng.integers(4, 33))
@@ -292,7 +235,7 @@ def test_ils_encode_fuzz_shapes(rng):
         res = icm.ils_encode(
             jax.random.PRNGKey(n), jnp.asarray(X), jnp.asarray(B0),
             jnp.asarray(C), ilsiter=2, icmiter=1, npert=1,
-            condition_mode="kernel",
+            condition_mode=mode,
         )
         B = np.asarray(res.B)
         assert B.min() >= 0 and B.max() < h, (m, h, d, n)
@@ -302,38 +245,26 @@ def test_ils_encode_fuzz_shapes(rng):
         assert (newcost <= cost0 + 1e-3).all(), (m, h, d, n)
 
 
-def test_ils_kernel_fits_predicate():
-    """VMEM-fit predicate: production shapes fit; LUT-explosion shapes
-    (m*h so large the resident cost LUTs alone exceed VMEM) do not —
-    ils_encode falls back to the matmul path for those."""
-    from local_search_quantization_tpu.ops.icm_pallas import ils_kernel_fits
 
-    for m, h in [(7, 256), (8, 256), (7, 512), (8, 512), (4, 64), (7, 20),
-                 (2, 2048)]:
-        assert ils_kernel_fits(m, h), (m, h)
-    for m, h in [(7, 1024), (8, 1024), (16, 512), (4, 2048)]:
-        assert not ils_kernel_fits(m, h), (m, h)
-
-
-def test_fused_ils_in_kernel_cost_matches_decomposition(rng):
-    """The in-kernel MRF cost (bf16 LUTs) must track the exact decomposition;
-    a layout bug here silently corrupts accept-if-better decisions."""
-    from local_search_quantization_tpu.ops.icm_pallas import fused_ils_encode
-
-    n, d, m, h = 32, 8, 4, 8
-    X = rng.normal(size=(n, d)).astype(np.float32)
-    C = (rng.normal(size=(m, h, d)) * 0.4).astype(np.float32)
-    B0 = rng.integers(0, h, size=(n, m), dtype=np.int32)
-    unaries = luts.get_unaries(jnp.asarray(X), jnp.asarray(C))
-    binaries = luts.get_binaries(jnp.asarray(C))
-    xsq = jnp.sum(jnp.asarray(X) ** 2, axis=-1)
-    orders = jnp.tile(jnp.arange(m, dtype=jnp.int32), (3, 1))
-    B, kcost, _, _, _ = fused_ils_encode(
-        jax.random.PRNGKey(0), orders, unaries,
-        binaries, xsq, jnp.asarray(B0),
-        ilsiter=3, icmiter=2, npert=1, interpret=True,
-    )
-    exact = np.asarray(icm.cost_from_luts(xsq, unaries, binaries, B))
-    # With the hi/lo split-bf16 cost LUTs the in-kernel cost is fp32-grade
-    # (~1e-5 relative), not raw-bf16 (~4e-3) — assert the tight tolerance.
-    np.testing.assert_allclose(np.asarray(kcost), exact, rtol=1e-4, atol=1e-3)
+@pytest.mark.parametrize("mode", ["gather", "matmul"])
+def test_ils_encode_odd_h(rng, mode):
+    """h off the power-of-two grid (64, 20) encodes in both conditioning
+    modes: codes stay in range, accept-if-better holds, cost improves."""
+    for h in (64, 20):
+        n, d, m = 96, 16, 4
+        X = rng.normal(size=(n, d)).astype(np.float32)
+        C = (rng.normal(size=(m, h, d)) * 0.3).astype(np.float32)
+        B0 = rng.integers(0, h, size=(n, m), dtype=np.int32)
+        cost0 = np.asarray(
+            costs.veccost(jnp.asarray(X), jnp.asarray(B0), jnp.asarray(C))
+        )
+        res = icm.ils_encode(
+            jax.random.PRNGKey(2), jnp.asarray(X), jnp.asarray(B0),
+            jnp.asarray(C), ilsiter=2, icmiter=2, npert=1,
+            condition_mode=mode,
+        )
+        B = np.asarray(res.B)
+        assert B.min() >= 0 and B.max() < h
+        newcost = np.asarray(costs.veccost(jnp.asarray(X), res.B, jnp.asarray(C)))
+        assert (newcost <= cost0 + 1e-3).all()
+        assert newcost.mean() < cost0.mean()

@@ -8,8 +8,8 @@ rotated into the code space).
 import numpy as np
 import pytest
 
-from local_search_quantization_tpu.index import Index
-from local_search_quantization_tpu.utils.synth import synthetic_dataset
+from local_search_quantization.index import Index
+from local_search_quantization.utils.synth import synthetic_dataset
 
 
 @pytest.fixture(scope="module")
@@ -69,7 +69,7 @@ def test_index_lifecycle(tmp_path, data, method, rng):
     # Multi-chip serving path: database sharded over the virtual 8-device
     # mesh must agree with the single-chip route (modulo exact-tie order),
     # tombstones included.
-    from local_search_quantization_tpu.parallel.mesh import data_mesh
+    from local_search_quantization.parallel.mesh import data_mesh
 
     mesh = data_mesh()
     r_mesh = idx.search(np.concatenate([data.query[:1], xnew[:1]]), k=50,
@@ -100,9 +100,9 @@ def test_index_lifecycle(tmp_path, data, method, rng):
 
 
 def test_index_build_sr_production_path(tmp_path, data):
-    """The recommended production config (sr='SR-C', BASELINE.md) must be
-    reachable through Index.build / build_index.py, stamped in meta, and
-    serve identically in kind to a plain LSQ index (VERDICT r3 item 2)."""
+    """The recommended production config (sr='SR-C') must be reachable
+    through Index.build / build_index.py, stamped in meta, and serve
+    identically in kind to a plain LSQ index."""
     idx = Index.build(data.train, data.base[:300], "lsq", m=2, h=16,
                       niter=2, ilsiter=2, seed=0, sr="SR-C")
     assert idx.meta["sr"] == "SR-C"
@@ -158,11 +158,11 @@ def test_index_search_bf16_precision(data):
 
 
 def test_index_device_scan_cache_lifecycle(data, monkeypatch):
-    """The device-code scan cache (TPU serving hot path) must be
+    """The device-code scan cache (GPU serving hot path) must be
     result-transparent and invalidate on every mutation. The gate is
     stubbed on so the lifecycle runs on the CPU suite; routing inside
     adc still picks the CPU path, which accepts device_state."""
-    import local_search_quantization_tpu.index as index_mod
+    import local_search_quantization.index as index_mod
 
     idx = Index.build(data.train, data.base, "pq", m=2, h=16, niter=2,
                       seed=0)

@@ -10,9 +10,9 @@ distance arrays plus per-id recomputed-distance checks).
 import numpy as np
 import pytest
 
-from local_search_quantization_tpu import ivf
-from local_search_quantization_tpu.index import Index
-from local_search_quantization_tpu.utils import native
+from local_search_quantization import ivf
+from local_search_quantization.index import Index
+from local_search_quantization.utils import native
 
 
 def _mk_clustered(rng, n, d, ncl=12, spread=0.35):
@@ -197,7 +197,7 @@ def test_compact_preserves_partition(rng_module):
     assert new_tail[0] in r.ids[0], r.ids[0]
     assert new_tail[1] in r.ids[1], r.ids[1]
     # Structural invariants survive the renumbering (from_arrays checks).
-    from local_search_quantization_tpu.ivf import IVFPartition
+    from local_search_quantization.ivf import IVFPartition
 
     IVFPartition.from_arrays(idx.ivf.to_arrays())
 
@@ -340,7 +340,7 @@ def test_nprobe_validation(pq_index):
 
 
 def test_corrupt_partition_rejected(tmp_path, rng_module):
-    from local_search_quantization_tpu.ivf import IVFPartition
+    from local_search_quantization.ivf import IVFPartition
 
     X = _mk_clustered(rng_module, 400, 8, ncl=4)
     idx = Index.build(X[:200], X, "pq", m=2, h=16, niter=2)
@@ -449,7 +449,7 @@ def test_rotated_methods_full_probe(method, rng_module):
 
 
 def test_h_over_256_rejected(rng_module):
-    from local_search_quantization_tpu.ivf import build_partition
+    from local_search_quantization.ivf import build_partition
 
     B = rng_module.integers(0, 300, size=(600, 2)).astype(np.int32)
     xhat = rng_module.normal(size=(600, 8)).astype(np.float32)
@@ -526,7 +526,7 @@ def test_refine_composes_with_mesh(rng_module):
     """search(mesh=..., refine=r): first stage sharded over the virtual
     device mesh, exact rerank host-side — distances must be the true
     squared L2 of the dequantized candidates."""
-    from local_search_quantization_tpu.parallel.mesh import data_mesh
+    from local_search_quantization.parallel.mesh import data_mesh
 
     X = _mk_clustered(rng_module, 1000, 16, ncl=6)
     idx = Index.build(X[:300], X, "pq", m=2, h=64, niter=2, refine="sq8")
@@ -582,7 +582,7 @@ def test_segmented_scan_preserves_sentinels(rng_module):
     Q = rng_module.normal(size=(3, d)).astype(np.float32) * 5
     extra = np.zeros(n, np.float32)
     extra[10:] = np.inf  # all live rows sit in the FIRST segment
-    from local_search_quantization_tpu.ops import adc
+    from local_search_quantization.ops import adc
 
     res = adc.linscan_pq(B, Q, C_sub, k=40, extra=extra,
                          base_segment=256)
@@ -604,7 +604,7 @@ def test_tombstone_negative_ids_noop(pq_index):
 
 
 def test_nlist_beyond_sample_rejected(rng_module):
-    from local_search_quantization_tpu.ivf import build_partition
+    from local_search_quantization.ivf import build_partition
 
     B = rng_module.integers(0, 16, size=(500, 2)).astype(np.int32)
     xhat = rng_module.normal(size=(500, 8)).astype(np.float32)

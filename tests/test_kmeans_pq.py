@@ -4,15 +4,15 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from local_search_quantization_tpu.models import (
+from local_search_quantization.models import (
     quantize_opq,
     quantize_pq,
     train_opq,
     train_pq,
 )
-from local_search_quantization_tpu.ops import kmeans as km
-from local_search_quantization_tpu.ops.subspaces import qerror_opq, qerror_pq
-from local_search_quantization_tpu.utils.config import OPQConfig, PQConfig
+from local_search_quantization.ops import kmeans as km
+from local_search_quantization.ops.subspaces import qerror_opq, qerror_pq
+from local_search_quantization.utils.config import OPQConfig, PQConfig
 
 
 def test_kmeans_recovers_separated_clusters(rng):

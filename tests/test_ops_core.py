@@ -6,7 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from local_search_quantization_tpu.ops import costs, luts, subspaces
+from local_search_quantization.ops import costs, luts, subspaces
 
 
 def make_problem(rng, n=50, d=12, m=4, h=8):

@@ -1,18 +1,18 @@
-"""Multi-chip sharding tests on the 8-device virtual CPU mesh."""
+"""Multi-device sharding tests on the 8-device virtual CPU mesh."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from local_search_quantization_tpu.ops import adc, costs, icm, solver
-from local_search_quantization_tpu.parallel import data_mesh, replicated, shard_batch
-from local_search_quantization_tpu.parallel.encode import (
+from local_search_quantization.ops import adc, costs, icm, solver
+from local_search_quantization.parallel import data_mesh, replicated, shard_batch
+from local_search_quantization.parallel.encode import (
     make_lsq_train_step,
     sharded_ils_encode,
     sharded_update_codebooks,
 )
-from local_search_quantization_tpu.parallel.query import sharded_linscan_lsq
+from local_search_quantization.parallel.query import sharded_linscan_lsq
 
 
 @pytest.fixture(scope="module")
@@ -102,11 +102,11 @@ def test_sharded_query_matches_single_chip(rng, mesh):
 
 
 def test_sharded_query_bf16_precision_matches_rounded_oracle(rng, mesh):
-    """precision='bf16' on the mesh route: _sharded_linscan rounds the
-    LUTs ONCE at the driver, so the kernel and streaming shard scans
-    return the exact lexicographic top-k of the bf16-rounded metric —
-    id-for-id against an f64 oracle over the same rounded tables, and
-    id-for-id against the single-chip bf16 route."""
+    """precision='bf16' on the mesh route: sharded_scan_topk rounds the
+    LUTs ONCE, so the shard scans return the exact lexicographic top-k of
+    the bf16-rounded metric — id-for-id against an f64 oracle over the
+    same rounded tables, and id-for-id against the single-device bf16
+    route."""
     n, nq, d, m, h = 2048, 8, 8, 3, 8
     C = (rng.normal(size=(m, h, d))).astype(np.float32)
     B = rng.integers(0, h, size=(n, m), dtype=np.int32)
@@ -123,11 +123,9 @@ def test_sharded_query_bf16_precision_matches_rounded_oracle(rng, mesh):
         (np.broadcast_to(np.arange(n), full_r.shape), full_r), axis=1
     )[:, :k]
 
-    for method in ("scan", "kernel"):
-        multi = sharded_linscan_lsq(mesh, B, Q, jnp.asarray(C), dbn, k,
-                                    query_chunk=8, block=256, method=method,
-                                    precision="bf16")
-        np.testing.assert_array_equal(np.asarray(multi.ids), oracle_ids)
+    multi = sharded_linscan_lsq(mesh, B, Q, jnp.asarray(C), dbn, k,
+                                query_chunk=8, block=256, precision="bf16")
+    np.testing.assert_array_equal(np.asarray(multi.ids), oracle_ids)
     single = adc.linscan_lsq(B, Q, jnp.asarray(C), dbn, k=k, query_chunk=8,
                              base_block=256, precision="bf16")
     np.testing.assert_array_equal(np.asarray(single.ids), oracle_ids)
@@ -135,14 +133,12 @@ def test_sharded_query_bf16_precision_matches_rounded_oracle(rng, mesh):
         sharded_linscan_lsq(mesh, B, Q, jnp.asarray(C), dbn, k,
                             precision="fp8")
 
-    # A DIRECT sharded_scan_topk(method="scan", precision="bf16") call
-    # (bypassing the _sharded_linscan driver that rounds) must round the
-    # LUTs itself — a direct caller previously got f32-metric results
-    # labeled bf16 (advisor r4).
-    from local_search_quantization_tpu.parallel.mesh import (
+    # A DIRECT sharded_scan_topk(precision="bf16") call (bypassing the
+    # _sharded_linscan driver) must round the LUTs itself.
+    from local_search_quantization.parallel.mesh import (
         replicated, shard_cols,
     )
-    from local_search_quantization_tpu.parallel.query import (
+    from local_search_quantization.parallel.query import (
         sharded_scan_topk,
     )
 
@@ -150,7 +146,7 @@ def test_sharded_query_bf16_precision_matches_rounded_oracle(rng, mesh):
     es = shard_cols(mesh, jnp.asarray(dbn))
     direct = sharded_scan_topk(
         mesh, replicated(mesh, jnp.asarray(luts)), Bs, es, k,
-        block=256, method="scan", precision="bf16",
+        block=256, precision="bf16",
     )
     np.testing.assert_array_equal(np.asarray(direct.ids), oracle_ids)
 
@@ -158,7 +154,7 @@ def test_sharded_query_bf16_precision_matches_rounded_oracle(rng, mesh):
 def test_sharded_query_empty_and_custom_axis(rng):
     """nq=0 returns an empty KNNResult (no concatenate crash), and the
     drivers honor a custom mesh axis name end-to-end."""
-    from local_search_quantization_tpu.parallel.query import sharded_linscan_pq
+    from local_search_quantization.parallel.query import sharded_linscan_pq
 
     mesh_x = data_mesh(jax.devices()[:4], axis="x")
     n, d, m, h = 256, 8, 2, 8
@@ -200,63 +196,6 @@ def test_sharded_query_tiny_shards_k_exceeds_shard(rng, mesh):
     assert np.asarray(multi2.ids).min() >= 0
 
 
-def test_sharded_ils_encode_kernel_mode(rng, mesh):
-    """The whole-ILS Pallas kernel composes with shard_map (interpret on
-    the virtual mesh): per-vector accept-if-better must hold per shard."""
-    from local_search_quantization_tpu.ops import costs
-    from local_search_quantization_tpu.parallel.encode import sharded_ils_encode
-    from local_search_quantization_tpu.parallel.mesh import replicated, shard_batch
-
-    n, d, m, h = 256, 16, 4, 16
-    X = rng.normal(size=(n, d)).astype(np.float32)
-    C = (rng.normal(size=(m, h, d)) * 0.3).astype(np.float32)
-    B0 = rng.integers(0, h, size=(n, m), dtype=np.int32)
-    cost0 = np.asarray(costs.veccost(jnp.asarray(X), jnp.asarray(B0), jnp.asarray(C)))
-    res = sharded_ils_encode(
-        mesh, jax.random.PRNGKey(0),
-        shard_batch(mesh, jnp.asarray(X)), shard_batch(mesh, jnp.asarray(B0)),
-        replicated(mesh, jnp.asarray(C)),
-        ilsiter=2, icmiter=2, npert=1, condition_mode="kernel",
-    )
-    newcost = np.asarray(costs.veccost(jnp.asarray(X), jnp.asarray(res.B), jnp.asarray(C)))
-    assert (newcost <= cost0 + 1e-3).all()
-    assert newcost.mean() < cost0.mean()
-    np.testing.assert_allclose(np.asarray(res.cost), newcost, rtol=1e-4, atol=1e-3)
-
-    # The per-round "fused" Pallas path is also vma-exempt (regression:
-    # check_vma only exempted "kernel", crashing mode="fused" at trace).
-    res2 = sharded_ils_encode(
-        mesh, jax.random.PRNGKey(1),
-        shard_batch(mesh, jnp.asarray(X)), shard_batch(mesh, jnp.asarray(B0)),
-        replicated(mesh, jnp.asarray(C)),
-        ilsiter=1, icmiter=1, npert=1, condition_mode="fused",
-    )
-    c2 = np.asarray(costs.veccost(jnp.asarray(X), jnp.asarray(res2.B), jnp.asarray(C)))
-    assert (c2 <= cost0 + 1e-3).all()
-
-
-def test_sharded_query_kernel_method_matches_scan(rng, mesh):
-    """method='kernel' (per-shard fused Pallas scan+select, interpreted on
-    the virtual CPU mesh) must return the same distances as the lax.top_k
-    streaming merge, including with k larger than a shard."""
-    from local_search_quantization_tpu.ops import costs
-    from local_search_quantization_tpu.parallel.query import sharded_linscan_lsq
-
-    n, nq, d, m, h = 1024, 3, 8, 2, 8
-    C = rng.normal(size=(m, h, d)).astype(np.float32)
-    B = rng.integers(0, h, size=(n, m), dtype=np.int32)
-    Q = rng.normal(size=(nq, d)).astype(np.float32)
-    recon = np.asarray(costs.reconstruct(jnp.asarray(B), jnp.asarray(C)))
-    dbn = np.sum(recon * recon, axis=1).astype(np.float32)
-    for k in (7, 200):  # 200 > shard size 128: exercises sentinel padding
-        a = sharded_linscan_lsq(mesh, B, Q, jnp.asarray(C), dbn, k=k,
-                                query_chunk=4, block=64, method="scan")
-        b = sharded_linscan_lsq(mesh, B, Q, jnp.asarray(C), dbn, k=k,
-                                query_chunk=4, block=64, method="kernel")
-        np.testing.assert_allclose(b.dists, a.dists, rtol=1e-4, atol=1e-4)
-        assert b.ids.min() >= 0 and b.ids.max() < n
-
-
 def test_graft_entry_single_and_multi():
     import __graft_entry__ as g
 
@@ -264,8 +203,8 @@ def test_graft_entry_single_and_multi():
     out = jax.jit(fn)(*args)
     jax.block_until_ready(out)
     # Driver path: self-provisions an 8-device virtual CPU platform in a
-    # child process (the round-1 failure mode was asserting on the parent's
-    # pinned single-device backend, MULTICHIP_r01.json).
+    # child process (asserting on the parent's single-device backend would
+    # fail).
     g.dryrun_multichip(8)
 
 
@@ -279,9 +218,9 @@ def test_graft_entry_dryrun_inproc(monkeypatch):
 
 
 def test_sharded_pq_query_matches_single(rng, mesh):
-    from local_search_quantization_tpu.models import train_pq
-    from local_search_quantization_tpu.parallel.query import sharded_linscan_pq
-    from local_search_quantization_tpu.utils.config import PQConfig
+    from local_search_quantization.models import train_pq
+    from local_search_quantization.parallel.query import sharded_linscan_pq
+    from local_search_quantization.utils.config import PQConfig
 
     X = rng.normal(size=(400, 16)).astype(np.float32)
     model = train_pq(X, PQConfig(m=4, h=8))
@@ -298,9 +237,8 @@ def test_tie_heavy_route_parity_exact_ids(rng, mesh):
     """The lexicographic (dist, id) tie contract, pinned ROUTE-FOR-ROUTE:
     on tie-heavy codes (h=4, m=2 -> 16 distinct codes over n=4096, so the
     top-k is a few ~256-way exact-tie blocks straddling the k boundary)
-    the single-chip kernel route (interpret), the single-chip streaming
-    merge, the sharded-mesh route, and the native host scanner (when
-    built) must all return EXACTLY the np.lexsort oracle's ids — this is
+    the single-device streaming merge, the sharded-mesh route, the
+    tournament, and the native host scanner (when built) must all return EXACTLY the np.lexsort oracle's ids — this is
     what keeps results reproducible bit-for-bit across serving routes
     (MIGRATION.md "Querying"; the reference's partial_sort leaves tie
     order unspecified, linscan_aqd.cpp:91)."""
@@ -318,23 +256,20 @@ def test_tie_heavy_route_parity_exact_ids(rng, mesh):
     )[:, :k]
 
     routes = {
-        "kernel": adc.linscan_lsq(B, Q, jnp.asarray(C), dbn, k=k,
-                                  query_chunk=8, topk_method="kernel"),
         "merge": adc.linscan_lsq(B, Q, jnp.asarray(C), dbn, k=k,
                                  query_chunk=8, base_block=512,
                                  topk_method="exact"),
         "mesh": sharded_linscan_lsq(mesh, B, Q, jnp.asarray(C), dbn, k,
                                     query_chunk=8, block=256),
     }
-    from local_search_quantization_tpu.utils import native
+    from local_search_quantization.utils import native
 
     if native.available():
         routes["native"] = adc.linscan_lsq(B, Q, jnp.asarray(C), dbn, k=k,
                                            topk_method="native")
-    # The group-minima tournament (deep-k fallback beyond the select
-    # kernel's VMEM envelope) joins the contract via its certify/rerun
-    # phase: on this tie-heavy data the certificate fires on nearly
-    # every query, routing through the lex-exact streaming merge.
+    # The group-minima tournament joins the contract via its
+    # certify/rerun phase: on this tie-heavy data the certificate fires on
+    # nearly every query, routing through the lex-exact streaming merge.
     routes["tournament"] = adc.linscan_lsq(B, Q, jnp.asarray(C), dbn, k=k,
                                            query_chunk=8, base_block=512,
                                            topk_method="tournament")
@@ -345,50 +280,11 @@ def test_tie_heavy_route_parity_exact_ids(rng, mesh):
         )
 
 
-def test_mesh_deep_k_widen_lex_parity(rng, mesh, monkeypatch):
-    """The sharded deep-k flavor (replace-worst buffer per shard) is
-    value-strict: WHICH ids survive a tie block straddling the k-th value
-    per shard is arrival-biased. sharded_scan_topk's two-phase widen
-    (k+1 column per shard + grouped-kernel rerun of certificate-failing
-    queries) must restore the exact lexicographic ids. Forced via the
-    env variant override so the tie-heavy case stays CPU-mesh sized:
-    h=2/m=2 gives 4 distinct code values over shard_n=512, so the
-    smallest-value tie block (~128 rows) overflows past k=50 AND fills
-    the kernel's 128-slot buffer, so the per-shard certificate fires on
-    every query and the grouped-kernel rerun path is exercised end to
-    end. (Interpret-mode arrival order is id-ascending, which happens to
-    coincide with lex, so the PRE-widen ids are not wrong at this size;
-    the actual divergence + fix was verified at natural deep-k shape —
-    k=2100 > the per-shard kernel envelope — see BASELINE.md "deep-k"
-    round-4 update. This test pins the widen machinery: a broken
-    certificate, rerun dispatch, or row write-back fails the oracle.)"""
-    monkeypatch.setenv("LSQ_TPU_SELECT_VARIANT", "grouped_unsorted")
-    n, nq, d, m, h, k = 4096, 5, 8, 2, 2, 50
-    C = (rng.normal(size=(m, h, d)) * 0.5).astype(np.float32)
-    B = rng.integers(0, h, size=(n, m), dtype=np.int32)
-    Q = rng.normal(size=(nq, d)).astype(np.float32)
-    recon = np.asarray(costs.reconstruct(jnp.asarray(B), jnp.asarray(C)))
-    dbn = np.sum(recon * recon, axis=1).astype(np.float32)
-
-    luts = np.asarray(adc.lsq_query_luts(jnp.asarray(Q), jnp.asarray(C)))
-    full = luts[:, np.arange(m)[:, None], B.T].sum(1) + dbn[None, :]
-    oracle_ids = np.lexsort(
-        (np.broadcast_to(np.arange(n), full.shape), full), axis=1
-    )[:, :k]
-
-    multi = sharded_linscan_lsq(mesh, B, Q, jnp.asarray(C), dbn, k,
-                                query_chunk=8, block=256, method="kernel")
-    np.testing.assert_array_equal(np.asarray(multi.ids), oracle_ids)
-    np.testing.assert_allclose(
-        np.asarray(multi.dists),
-        np.take_along_axis(full, oracle_ids, axis=1), rtol=1e-4, atol=1e-4)
-
-
 def test_sharded_device_state_matches_fresh_upload(rng, mesh):
     """prepare_sharded_codes + device_state (the mesh serving code
     cache) must be result-identical to the per-call shard/upload, and a
     state built for a different base must be rejected."""
-    from local_search_quantization_tpu.parallel.query import (
+    from local_search_quantization.parallel.query import (
         prepare_sharded_codes, sharded_linscan_lsq,
     )
 
@@ -418,12 +314,12 @@ def test_sharded_device_state_matches_fresh_upload(rng, mesh):
 
 def test_index_mesh_scan_cache_lifecycle(rng, mesh):
     """Index.search(mesh=...) reuses pre-sharded codes across calls and
-    invalidates on mutation — the pod-serving analog of the single-chip
-    device cache. The mesh cache is backend-agnostic (no gate stub
+    invalidates on mutation — the mesh-serving analog of the
+    single-device device cache. The mesh cache is backend-agnostic (no gate stub
     needed: there is no native-scanner alternative under a mesh), so
     this exercises the LIVE cache on the CPU-mesh suite."""
-    from local_search_quantization_tpu.index import Index
-    from local_search_quantization_tpu.utils.synth import synthetic_dataset
+    from local_search_quantization.index import Index
+    from local_search_quantization.utils.synth import synthetic_dataset
 
     data = synthetic_dataset(7, d=16, n_train=400, n_base=1200, n_query=8)
     idx = Index.build(data.train, data.base, "pq", m=2, h=16, niter=2,
@@ -442,3 +338,63 @@ def test_index_mesh_scan_cache_lifecycle(rng, mesh):
     res2 = idx.search(data.query, k=10, mesh=mesh)
     assert idx._mesh_scan_cache[0] != ver0
     assert victim not in np.asarray(res2.ids)[0]
+
+
+@pytest.mark.parametrize("platform", ["gpu", "cpu"])
+def test_sharded_ils_encode_follows_mesh_route(rng, mesh, monkeypatch,
+                                               platform):
+    """Sharded encode resolves "auto" through the route of the MESH's
+    platform (a GPU mesh runs the matmul conditioning under shard_map),
+    and per-vector accept-if-better holds either way."""
+    import local_search_quantization.parallel.encode as enc_mod
+
+    seen = []
+    inner = enc_mod.ils_encode
+
+    def spy(*a, condition_mode, **kw):
+        seen.append(condition_mode)
+        return inner(*a, condition_mode=condition_mode, **kw)
+
+    monkeypatch.setattr(enc_mod, "mesh_platform", lambda m: platform)
+    monkeypatch.setattr(enc_mod, "ils_encode", spy)
+    n, d, m, h = 256, 16, 4, 16
+    X = rng.normal(size=(n, d)).astype(np.float32)
+    C = (rng.normal(size=(m, h, d)) * 0.3).astype(np.float32)
+    B0 = rng.integers(0, h, size=(n, m), dtype=np.int32)
+    cost0 = np.asarray(costs.veccost(jnp.asarray(X), jnp.asarray(B0),
+                                     jnp.asarray(C)))
+    res = sharded_ils_encode(
+        mesh, jax.random.PRNGKey(0),
+        shard_batch(mesh, jnp.asarray(X)), shard_batch(mesh, jnp.asarray(B0)),
+        replicated(mesh, jnp.asarray(C)), ilsiter=2, icmiter=2, npert=1,
+    )
+    from local_search_quantization.routes import ROUTES
+
+    assert seen == [ROUTES[platform].condition_mode]
+    newcost = np.asarray(costs.veccost(jnp.asarray(X), jnp.asarray(res.B),
+                                       jnp.asarray(C)))
+    assert (newcost <= cost0 + 1e-3).all()
+    assert newcost.mean() < cost0.mean()
+    np.testing.assert_allclose(np.asarray(res.cost), newcost, rtol=1e-4,
+                               atol=1e-3)
+
+
+@pytest.mark.parametrize("path", ["encode", "query"])
+def test_mesh_on_unknown_platform_raises(rng, mesh, monkeypatch, path):
+    import local_search_quantization.parallel.encode as enc_mod
+    import local_search_quantization.parallel.query as q_mod
+
+    n, d, m, h = 64, 8, 2, 8
+    X = rng.normal(size=(n, d)).astype(np.float32)
+    C = (rng.normal(size=(m, h, d))).astype(np.float32)
+    B = rng.integers(0, h, size=(n, m), dtype=np.int32)
+    with pytest.raises(ValueError, match="no route"):
+        if path == "encode":
+            monkeypatch.setattr(enc_mod, "mesh_platform", lambda m: "metal")
+            sharded_ils_encode(mesh, jax.random.PRNGKey(0), jnp.asarray(X),
+                               jnp.asarray(B), jnp.asarray(C), ilsiter=1,
+                               icmiter=1, npert=1)
+        else:
+            monkeypatch.setattr(q_mod, "mesh_platform", lambda m: "metal")
+            sharded_linscan_lsq(mesh, B, X[:4], jnp.asarray(C),
+                                np.zeros(n, np.float32), 5, block=8)

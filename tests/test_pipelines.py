@@ -7,7 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from local_search_quantization_tpu.models import (
+from local_search_quantization.models import (
     train_chainq,
     train_lsq,
     train_opq,
@@ -15,15 +15,15 @@ from local_search_quantization_tpu.models import (
     quantize_opq,
     quantize_pq,
 )
-from local_search_quantization_tpu.ops import adc, costs, icm, norms
-from local_search_quantization_tpu.utils.config import (
+from local_search_quantization.ops import adc, costs, icm, norms
+from local_search_quantization.utils.config import (
     ChainQConfig,
     LSQConfig,
     OPQConfig,
     PQConfig,
 )
-from local_search_quantization_tpu.utils.eval import eval_recall
-from local_search_quantization_tpu.utils.synth import random_codes, synthetic_dataset
+from local_search_quantization.utils.eval import eval_recall
+from local_search_quantization.utils.synth import random_codes, synthetic_dataset
 
 
 @pytest.fixture(scope="module")
@@ -102,8 +102,8 @@ def test_lsq_stochastic_relaxation_variants(data):
 
     import pytest
 
-    from local_search_quantization_tpu.models import train_chainq, train_opq
-    from local_search_quantization_tpu.utils.config import ChainQConfig, OPQConfig
+    from local_search_quantization.models import train_chainq, train_opq
+    from local_search_quantization.utils.config import ChainQConfig, OPQConfig
 
     m, h = 4, 16
     opq = train_opq(data.train, OPQConfig(m=m, h=h, niter=3, seed=2))
@@ -120,8 +120,8 @@ def test_lsq_stochastic_relaxation_variants(data):
         )
         assert np.isfinite(finals[sr]), sr
     # At test scale (6 iters) the annealing has little room — only bound
-    # the damage; the quality WIN shows at paper scale/iteration counts
-    # (see BASELINE.md). SR-C is the noisier variant.
+    # the damage; the quality WIN shows at paper scale/iteration counts.
+    # SR-C is the noisier variant.
     assert finals["SR-D"] <= finals["none"] * 1.10
     assert finals["SR-C"] <= finals["none"] * 1.25
 

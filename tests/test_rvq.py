@@ -4,11 +4,11 @@ serving stack (norms + linscan_lsq + Index) applies verbatim."""
 import numpy as np
 import pytest
 
-from local_search_quantization_tpu.index import Index
-from local_search_quantization_tpu.models import train_rvq
-from local_search_quantization_tpu.models.rvq import quantize_rvq
-from local_search_quantization_tpu.ops import costs
-from local_search_quantization_tpu.utils.config import RVQConfig
+from local_search_quantization.index import Index
+from local_search_quantization.models import train_rvq
+from local_search_quantization.models.rvq import quantize_rvq
+from local_search_quantization.ops import costs
+from local_search_quantization.utils.config import RVQConfig
 
 
 @pytest.fixture

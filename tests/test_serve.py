@@ -54,7 +54,7 @@ def test_build_and_serve(tmp_path, method, rng):
 
     # Snapshot the as-built index for the parity oracle below — the serve
     # session's "save" op rewrites codes.npz with the mutations.
-    from local_search_quantization_tpu.utils import checkpoint as ckpt
+    from local_search_quantization.utils import checkpoint as ckpt
 
     model = ckpt.load_model(os.path.join(idx, "model.npz"))
     codes0 = ckpt.load_codes(os.path.join(idx, "codes.npz"))
@@ -159,7 +159,7 @@ def test_build_and_serve(tmp_path, method, rng):
 
     # Parity of the pre-mutation responses with a direct in-process scan
     # over the as-built index snapshot.
-    from local_search_quantization_tpu.ops import adc
+    from local_search_quantization.ops import adc
 
     if method == "lsq":
         dbn = codes0["cbnorms"][codes0["bnorm"]].astype(np.float32)

@@ -4,12 +4,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from local_search_quantization_tpu.models.pq import train_pq
-from local_search_quantization_tpu.models.slsq import train_lsq_sparse
-from local_search_quantization_tpu.ops import prox
-from local_search_quantization_tpu.ops.costs import qerror
-from local_search_quantization_tpu.utils.config import PQConfig, SLSQConfig
-from local_search_quantization_tpu.utils.synth import synthetic_dataset
+from local_search_quantization.models.pq import train_pq
+from local_search_quantization.models.slsq import train_lsq_sparse
+from local_search_quantization.ops import prox
+from local_search_quantization.ops.costs import qerror
+from local_search_quantization.utils.config import PQConfig, SLSQConfig
+from local_search_quantization.utils.synth import synthetic_dataset
 
 
 def test_project_l1_ball_oracle(rng):

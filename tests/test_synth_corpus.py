@@ -11,7 +11,7 @@ fails here with a named property instead of an opaque recall drift.
 
 import numpy as np
 
-from local_search_quantization_tpu.utils.synth import synthetic_dataset
+from local_search_quantization.utils.synth import synthetic_dataset
 
 
 def _data(**kw):
@@ -112,7 +112,7 @@ def test_deterministic_given_seed():
 
 
 def test_corpus_fingerprint_matches_committed_artifacts():
-    """Silent-corpus-drift guard (VERDICT r3 hygiene): the committed
+    """Silent-corpus-drift guard: the committed
     quality artifacts carry the fingerprint of the generator that produced
     their corpus; the CURRENT generator must still produce that corpus.
     A calibration change must bump CORPUS_VERSION, re-pin the golden
@@ -121,7 +121,7 @@ def test_corpus_fingerprint_matches_committed_artifacts():
     import json
     import os
 
-    from local_search_quantization_tpu.utils.synth import (
+    from local_search_quantization.utils.synth import (
         CORPUS_VERSION,
         corpus_fingerprint,
     )

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from local_search_quantization_tpu.models import train_pq
-from local_search_quantization_tpu.utils import checkpoint, io, profiling
-from local_search_quantization_tpu.utils.config import LSQConfig, PQConfig
+from local_search_quantization.models import train_pq
+from local_search_quantization.utils import checkpoint, io, profiling
+from local_search_quantization.utils.config import LSQConfig, PQConfig
 
 
 def test_model_checkpoint_roundtrip(tmp_path, rng):

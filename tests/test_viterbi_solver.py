@@ -6,7 +6,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from local_search_quantization_tpu.ops import costs, solver, viterbi
+from local_search_quantization.ops import costs, solver, viterbi
 
 
 def chain_cost(x, C, codes):
